@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The library lands in ``ahrag_tpu_torch/_build/`` (ignored by
+git) under a name derived from the sources and flags, so an edited source
+rebuilds and an unchanged one is reused. It is built at first use, never at
+import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# name -> argtypes of the extern "C" launchers in csrc/binmax.cu
+_SIGNATURES = {
+    "ahrag_binmax2": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
+    "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P],
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, then ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``."""
+    candidates = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or in "
+                       "/usr/local/cuda/bin; the port's CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libahrag_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the kernels unless the library for these sources exists.
+    Returns {"path", "seconds", "built", "log"} (``log`` holds ptxas's
+    register and shared-memory report)."""
+    out = library_path()
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    return {"path": str(out), "seconds": seconds, "built": True,
+            "log": proc.stderr}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use. Needs a Hopper card (9, 0)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; none is available")
+    cap = torch.cuda.get_device_capability()
+    if cap != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a (Hopper); this "
+                           f"device has compute capability {cap}")
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,141 @@
+"""Streaming bin-max: the coarse stage of the certified top-k.
+
+Counterparts of ``dense_binmax2_pallas`` and ``dense_binmax_pallas``
+(``ahrag_tpu/ops/topk.py``). For each ``tile_n``-row corpus tile and each
+query the scores ``q . emb[r]`` (float32 accumulation) are masked (rows at or
+past ``n_valid``, or with ``mask`` false, score ``NEG_INF``) and reduced to 128
+strided bins: bin ``j`` of tile ``t`` holds rows ``t * tile_n + j + 128 * i``.
+
+Each wrapper launches the hand-written CUDA kernel (``csrc/binmax.cu``) for a
+CUDA tensor, counting the launch in its ``launches`` attribute, and takes the
+plain PyTorch version (``*_ref``) only for a tensor on the CPU. There is no
+fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ahrag_tpu_torch.device import f32_matmul
+
+NEG_INF = -1e30
+
+
+def _check(q: torch.Tensor, emb: torch.Tensor, mask: torch.Tensor,
+           tile_n: int) -> None:
+    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and emb {tuple(emb.shape)} must be "
+                         "[B, D] and [N, D]")
+    if tile_n % 128 or emb.shape[0] % tile_n:
+        raise ValueError(f"N={emb.shape[0]} must be a multiple of tile_n={tile_n}, "
+                         "itself a multiple of 128")
+    if mask.shape != (emb.shape[0],) or mask.dtype != torch.bool:
+        raise ValueError("mask must be a bool [N] tensor")
+    if q.dtype != emb.dtype or emb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q ({q.dtype}) and emb ({emb.dtype}) must share one "
+                        "type, float32 or bfloat16")
+    if not (q.device == emb.device == mask.device):
+        raise ValueError("q, emb and mask must lie on one device")
+
+
+def _scores_ref(q, emb, n_valid, mask, trivial):
+    s = f32_matmul(q, emb.T)                                   # [B, N]
+    if not trivial:
+        row = torch.arange(emb.shape[0], device=emb.device)
+        s = torch.where(((row < n_valid) & mask)[None, :], s, NEG_INF)
+    return s
+
+
+def dense_binmax2_ref(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                      mask: torch.Tensor, tile_n: int = 1024,
+                      trivial: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``dense_binmax2``: float32 matmul, ``where``, reshape
+    to [B, T, G, 128] and ``amax`` over the G rows of each bin."""
+    B, N = q.shape[0], emb.shape[0]
+    t = N // tile_n
+    bins = _scores_ref(q, emb, n_valid, mask, trivial).reshape(
+        B, t, tile_n // 128, 128).amax(dim=2)                  # [B, T, 128]
+    return bins.permute(1, 0, 2).contiguous(), bins.amax(dim=2)
+
+
+def dense_binmax_ref(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                     mask: torch.Tensor, tile_n: int = 1024) -> torch.Tensor:
+    """Plain version of ``dense_binmax``."""
+    B, N = q.shape[0], emb.shape[0]
+    return _scores_ref(q, emb, n_valid, mask, False).reshape(
+        B, N // tile_n, tile_n // 128, 128).amax(dim=2).reshape(B, -1)
+
+
+def _cuda_args(q, emb, mask):
+    if emb.device.type != "cuda":
+        raise ValueError(f"no bin-max kernel for device {emb.device}")
+    if not (q.is_contiguous() and emb.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("the bin-max kernels take contiguous q, emb and mask")
+    if q.shape[1] % 8 or q.data_ptr() % 16 or emb.data_ptr() % 16:
+        raise ValueError("the bin-max kernels need D % 8 == 0 and 16-byte "
+                         "aligned q and emb")
+    from ahrag_tpu_torch.ops._build import load_library
+    return load_library(), int(emb.dtype == torch.bfloat16)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def dense_binmax2(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                  mask: torch.Tensor, tile_n: int = 1024,
+                  trivial: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bin maxima plus each tile's supermax: ``[B, D] x [N, D] ->
+    (bins [N/tile_n, B, 128], supermax [B, N/tile_n])``, both float32.
+
+    ``trivial`` skips the masking; it is sound only when every masked-out row
+    has a zero embedding (see ``GraphTensors.mask_trivial``). The kernel
+    takes B % 128 == 0, as the TPU kernel did."""
+    _check(q, emb, mask, tile_n)
+    if emb.device.type == "cpu":
+        return dense_binmax2_ref(q, emb, n_valid, mask, tile_n, trivial)
+    B, N = q.shape[0], emb.shape[0]
+    if B == 0 or B % 128:
+        raise ValueError(f"dense_binmax2 takes B % 128 == 0, got B={B}")
+    if N // tile_n > 65535:
+        raise ValueError("at most 65535 tiles per launch")
+    lib, is_bf16 = _cuda_args(q, emb, mask)
+    bins = torch.empty((N // tile_n, B, 128), dtype=torch.float32, device=emb.device)
+    smax = torch.empty((B, N // tile_n), dtype=torch.float32, device=emb.device)
+    rc = lib.ahrag_binmax2(q.data_ptr(), emb.data_ptr(), mask.data_ptr(),
+                           int(n_valid), B, N, q.shape[1], tile_n, is_bf16,
+                           int(trivial), bins.data_ptr(), smax.data_ptr(),
+                           _stream(emb.device))
+    if rc:
+        raise RuntimeError(f"ahrag_binmax2 launch failed: cudaError {rc}")
+    dense_binmax2.launches += 1
+    return bins, smax
+
+
+def dense_binmax(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                 mask: torch.Tensor, tile_n: int = 1024) -> torch.Tensor:
+    """Bin maxima in query-major layout: ``[B, D] x [N, D] -> [B, N/G]``
+    float32 with G = tile_n / 128 rows per bin. Any B."""
+    _check(q, emb, mask, tile_n)
+    if emb.device.type == "cpu":
+        return dense_binmax_ref(q, emb, n_valid, mask, tile_n)
+    B, N = q.shape[0], emb.shape[0]
+    if N // tile_n > 65535:
+        raise ValueError("at most 65535 tiles per launch")
+    out = torch.empty((B, N // tile_n * 128), dtype=torch.float32, device=emb.device)
+    if B == 0:
+        return out
+    lib, is_bf16 = _cuda_args(q, emb, mask)
+    rc = lib.ahrag_binmax(q.data_ptr(), emb.data_ptr(), mask.data_ptr(),
+                          int(n_valid), B, N, q.shape[1], tile_n, is_bf16,
+                          out.data_ptr(), _stream(emb.device))
+    if rc:
+        raise RuntimeError(f"ahrag_binmax launch failed: cudaError {rc}")
+    dense_binmax.launches += 1
+    return out
+
+
+dense_binmax2.launches = 0
+dense_binmax.launches = 0
