@@ -28,10 +28,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# name -> argtypes of the extern "C" launchers in csrc/binmax.cu
+# name -> argtypes of the extern "C" launchers in csrc/*.cu
 _SIGNATURES = {
     "ahrag_binmax2": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
     "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P],
+    "ahrag_tile_topk": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -79,6 +80,22 @@ def build() -> dict:
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
     return {"path": str(out), "seconds": seconds, "built": True,
             "log": proc.stderr}
+
+
+def launch_args(q: torch.Tensor, emb: torch.Tensor,
+                mask: torch.Tensor | None) -> tuple[ctypes.CDLL, int, int]:
+    """(library, is_bf16, current stream) for a launch on ``emb``'s card, after
+    the checks every kernel shares: a CUDA device, contiguous q, emb and mask
+    (``mask`` may be None), D % 8 == 0 and 16-byte aligned q and emb."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"no CUDA kernel for device {emb.device}")
+    if not (q.is_contiguous() and emb.is_contiguous()
+            and (mask is None or mask.is_contiguous())):
+        raise ValueError("the kernels take contiguous q, emb and mask")
+    if q.shape[1] % 8 or q.data_ptr() % 16 or emb.data_ptr() % 16:
+        raise ValueError("the kernels need D % 8 == 0 and 16-byte aligned q and emb")
+    return (load_library(), int(emb.dtype == torch.bfloat16),
+            torch.cuda.current_stream(emb.device).cuda_stream)
 
 
 @functools.cache

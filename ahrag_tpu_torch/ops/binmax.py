@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from ahrag_tpu_torch.device import f32_matmul
+from ahrag_tpu_torch.ops._build import launch_args
 
 NEG_INF = -1e30
 
@@ -68,22 +69,6 @@ def dense_binmax_ref(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
         B, N // tile_n, tile_n // 128, 128).amax(dim=2).reshape(B, -1)
 
 
-def _cuda_args(q, emb, mask):
-    if emb.device.type != "cuda":
-        raise ValueError(f"no bin-max kernel for device {emb.device}")
-    if not (q.is_contiguous() and emb.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("the bin-max kernels take contiguous q, emb and mask")
-    if q.shape[1] % 8 or q.data_ptr() % 16 or emb.data_ptr() % 16:
-        raise ValueError("the bin-max kernels need D % 8 == 0 and 16-byte "
-                         "aligned q and emb")
-    from ahrag_tpu_torch.ops._build import load_library
-    return load_library(), int(emb.dtype == torch.bfloat16)
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def dense_binmax2(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
                   mask: torch.Tensor, tile_n: int = 1024,
                   trivial: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,13 +86,12 @@ def dense_binmax2(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
         raise ValueError(f"dense_binmax2 takes B % 128 == 0, got B={B}")
     if N // tile_n > 65535:
         raise ValueError("at most 65535 tiles per launch")
-    lib, is_bf16 = _cuda_args(q, emb, mask)
+    lib, is_bf16, stream = launch_args(q, emb, mask)
     bins = torch.empty((N // tile_n, B, 128), dtype=torch.float32, device=emb.device)
     smax = torch.empty((B, N // tile_n), dtype=torch.float32, device=emb.device)
     rc = lib.ahrag_binmax2(q.data_ptr(), emb.data_ptr(), mask.data_ptr(),
                            int(n_valid), B, N, q.shape[1], tile_n, is_bf16,
-                           int(trivial), bins.data_ptr(), smax.data_ptr(),
-                           _stream(emb.device))
+                           int(trivial), bins.data_ptr(), smax.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"ahrag_binmax2 launch failed: cudaError {rc}")
     dense_binmax2.launches += 1
@@ -127,10 +111,10 @@ def dense_binmax(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
     out = torch.empty((B, N // tile_n * 128), dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
-    lib, is_bf16 = _cuda_args(q, emb, mask)
+    lib, is_bf16, stream = launch_args(q, emb, mask)
     rc = lib.ahrag_binmax(q.data_ptr(), emb.data_ptr(), mask.data_ptr(),
                           int(n_valid), B, N, q.shape[1], tile_n, is_bf16,
-                          out.data_ptr(), _stream(emb.device))
+                          out.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"ahrag_binmax launch failed: cudaError {rc}")
     dense_binmax.launches += 1

@@ -24,38 +24,21 @@
 //     every thread reads the same address (a broadcast, free of bank conflicts);
 //   - each thread keeps a running max per query over its rows, so no [B, tile_n]
 //     score tile ever exists;
-//   - products are fmaf on operands widened with __bfloat162float: exact for bf16
-//     products and IEEE float32 for f32 storage, so no TF32 rounding enters and the
+//   - staging and products as in common.cuh: float32 FMA on widened operands, so the
 //     kernel agrees with a float32 matmul up to summation order;
 //   - blockIdx.x walks the query chunks of one tile, so the blocks that re-read a
 //     tile run together and find it in L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
+using ahrag::kNegInf;
+
 constexpr int kLanes = 128;      // bins per tile = threads per block
 constexpr int kQC = 32;          // queries per block
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T, bool kSupermax, bool kTrivial>
 __global__ void __launch_bounds__(kLanes)
@@ -71,12 +54,7 @@ binmax_kernel(const T* __restrict__ q, const T* __restrict__ emb,
   const int t = blockIdx.y;
   const int num_tiles = gridDim.y;
 
-  // queries past B stage as zeros: every thread then runs the same unrolled
-  // loop over kQC queries, and their results are never written
-  for (int x = j; x < kQC * D; x += kLanes) {
-    const int b = x / D;
-    q_s[x] = (c0 + b < B) ? to_float(q[(size_t)(c0 + b) * D + (x - b * D)]) : 0.f;
-  }
+  ahrag::stage_queries<kQC>(q, q_s, c0, B, D);
   __syncthreads();
 
   float best[kQC];
@@ -86,29 +64,8 @@ binmax_kernel(const T* __restrict__ q, const T* __restrict__ emb,
   const int rows_per_lane = tile_n / kLanes;
   for (int i = 0; i < rows_per_lane; ++i) {
     const long long row = (long long)t * tile_n + j + (long long)kLanes * i;
-    const T* e = emb + row * D;
     float dot[kQC];
-#pragma unroll
-    for (int b = 0; b < kQC; ++b) dot[b] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float ev[8];
-      load8(e + d0, ev);
-#pragma unroll
-      for (int b = 0; b < kQC; ++b) {
-        const float4 qa = *reinterpret_cast<const float4*>(q_s + b * D + d0);
-        const float4 qb = *reinterpret_cast<const float4*>(q_s + b * D + d0 + 4);
-        float acc = dot[b];
-        acc = fmaf(ev[0], qa.x, acc);
-        acc = fmaf(ev[1], qa.y, acc);
-        acc = fmaf(ev[2], qa.z, acc);
-        acc = fmaf(ev[3], qa.w, acc);
-        acc = fmaf(ev[4], qb.x, acc);
-        acc = fmaf(ev[5], qb.y, acc);
-        acc = fmaf(ev[6], qb.z, acc);
-        acc = fmaf(ev[7], qb.w, acc);
-        dot[b] = acc;
-      }
-    }
+    ahrag::score_row<kQC>(emb + row * D, q_s, D, dot);
     const bool ok = kTrivial || (row < n_valid && mask[row] != 0);
 #pragma unroll
     for (int b = 0; b < kQC; ++b) best[b] = fmaxf(best[b], ok ? dot[b] : kNegInf);

@@ -24,6 +24,7 @@ import torch
 
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
 from ahrag_tpu_torch.ops.binmax import NEG_INF, dense_binmax, dense_binmax2
+from ahrag_tpu_torch.ops.tile_topk import dense_topk_fused
 
 # Queries per coarse pass on the card. It bounds the [tiles, B, 128] float32
 # bin buffer (546 MB at 1M rows); each further chunk re-reads the corpus once.
@@ -36,6 +37,19 @@ def dense_topk_ref(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
     scores = f32_matmul(q, emb.T)
     col = torch.arange(emb.shape[0], device=emb.device)[None, :]
     return stable_topk(torch.where(col < n_valid, scores, NEG_INF), k)
+
+
+def dense_topk(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat exact top-k, dispatching as the JAX package's ``dense_topk`` does:
+    the fused per-tile kernel when the corpus lies on the card and N is a
+    positive multiple of 1024, else the full float32 matmul. The shape rule
+    is the JAX package's own; nothing falls back on failure.
+    Returns (vals [B, k] float32, idx [B, k] int64)."""
+    n = emb.shape[0]
+    if emb.is_cuda and n >= 1024 and n % 1024 == 0:
+        return dense_topk_fused(q, emb, n_valid, k)
+    return dense_topk_ref(q, emb, n_valid, k)
 
 
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor,

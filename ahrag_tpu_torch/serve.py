@@ -30,24 +30,16 @@ def batch_bucket(n: int) -> int:
     return ((n + 255) // 256) * 256
 
 
-def pack_queries(queries: List[str], encoder: HashedNGramEncoder
-                 ) -> Tuple[int, int, np.ndarray]:
-    """Featurize on the host and pack the sparse features into ONE float32
-    array, so a batch costs a single upload. Returns (n, n_rows, packed).
+def pack_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_rows: int,
+             buckets: int) -> np.ndarray:
+    """Pack COO feature triplets of an ``n_rows`` batch into ONE float32 array.
 
-    ``n_rows`` is the bucketed batch (padded with empty queries). The nnz cap
-    is ``max(4096, 128 * n_rows)``, doubled until the features fit. Layout
-    ``[cap, 2]`` holds (row * buckets + col, val) while that key is exact in
-    float32, ``(n_rows + 1) * buckets < 2**24``; otherwise ``[cap, 3]`` holds
-    (row, col, val). Padding entries point at the dump row ``n_rows``."""
-    n = len(queries)
-    padded = queries + [""] * (batch_bucket(n) - n)
-    counts = encoder._count_matrix(padded)
-    rows, cols = np.nonzero(counts)
-    vals = counts[rows, cols]
+    The nnz cap is ``max(4096, 128 * n_rows)``, doubled until the features
+    fit. Layout ``[cap, 2]`` holds (row * buckets + col, val) while that key
+    is exact in float32, ``(n_rows + 1) * buckets < 2**24``; otherwise
+    ``[cap, 3]`` holds (row, col, val). Padding entries point at the dump row
+    ``n_rows``."""
     nnz = len(rows)
-    n_rows = len(padded)
-    buckets = encoder.buckets
     cap = max(4096, 128 * n_rows)
     while cap < nnz:
         cap *= 2
@@ -62,7 +54,24 @@ def pack_queries(queries: List[str], encoder: HashedNGramEncoder
         packed[:nnz, 1] = cols
         packed[:nnz, 2] = vals
         packed[nnz:, 0] = n_rows
-    return n, n_rows, packed
+    return packed
+
+
+def pack_queries(queries: List[str], encoder: HashedNGramEncoder, assoc=None
+                 ) -> Tuple[int, int, np.ndarray]:
+    """Featurize on the host (the threaded C++ featurizer) and pack the sparse
+    features into ONE float32 array (``pack_coo``), so a batch costs a single
+    upload. Returns (n, n_rows, packed), where ``n_rows`` is the bucketed
+    batch, padded with empty queries.
+
+    ``assoc`` (from ``train_associations``) adds the query-side association
+    expansion, as the JAX serving stage does when its graph carries one."""
+    padded = queries + [""] * (batch_bucket(len(queries)) - len(queries))
+    rows, cols, vals = encoder._coo_block(padded)
+    if assoc is not None:
+        rows, cols, vals = encoder.expand_coo(rows, cols, vals, assoc)
+    return len(queries), len(padded), pack_coo(rows, cols, vals, len(padded),
+                                               encoder.buckets)
 
 
 def encode_and_search(coo_packed: np.ndarray, proj: torch.Tensor,

@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA bin-max kernels from ``ahrag_tpu_torch/ops/csrc`` and then,
-in phases that each print their wall time:
+Builds the port's CUDA kernels (``ahrag_tpu_torch/ops/csrc``) and its C++
+featurizer (``ahrag_tpu_torch/native/csrc``) and then, in phases that each
+print their wall time:
 
-  1. builds the kernels (nvcc, seconds);
-  2. holds each kernel against its plain PyTorch version on the card: bf16
-     and float32, masked and trivial, D = 384, 6 tiles, several batch sizes;
+  1. builds the kernels (one nvcc call) and then the native featurizer (the
+     host C++ compiler), printing the seconds of each;
+  2. holds each kernel against its plain PyTorch version on the card: the
+     bin-max kernels in bf16 and float32, masked and trivial, D = 384, 6
+     tiles; the tile top-k kernel over both types, tile_n 256/512/1024,
+     B 1/5/128, k 1/5/10 and k = tile_n (B 5 and 128), a partial n_valid, a
+     random mask with one fully masked tile, on exact inputs (ids and values
+     equal) and on unit vectors, with a control that rounds the plain scores
+     to bf16 and must fail the limit, and the all-identical-rows tie case;
   3. the 1,048,576-entity bench rung (1,067,008 nodes, bf16, B = 512) through
      ``hybrid_search_batch``: rank parity against the CPU reference on 8
      queries, the certificate audit on 64, the certified share, the kernels'
      launch counts and the batch time over 12 varied batches;
   4. the 131,072-entity rung in float32 with B = 2048, the same checks;
-  5. serving: 4 text queries through ``pack_queries`` and
-     ``encode_and_search`` against the 1M-node graph, the card's ids held
-     against the same call on the CPU;
+  5. flat exact top-k: ``dense_topk`` (k = 5) over the 1M rung's corpus at
+     B = 512 and over the 131k rung's at B = 2048, held against
+     ``dense_topk_ref`` on the card, with batch time and qps over 12 varied
+     batches, the kernel's time, its plain version's and the library's;
+  6. serving: 4 text queries, then the first 256 sample questions at buckets
+     4, 16, 64 and 256 through ``pack_queries`` (native featurizer, held bit
+     for bit against the Python one, both timed), and ``encode_and_search``
+     against the 1M-node graph, the card's ids held against the CPU's;
+  7. encoding: ``encode_device`` of the sample corpus with an IDF from
+     ``document_frequencies``, on the card and on the CPU;
 
 and prints the kernels' JSON line (times at the main-path shapes, bounds,
 launch counts, errors), the card's name and power limit, and last the
@@ -30,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 on the tensor cores, float32
 # outside them, HBM3 bandwidth. The bin-max kernels' products are bf16 for bf16
@@ -37,6 +52,14 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-6, "float32": 1e-5}   # bf16 products are exact: only summation order differs
+# The tile top-k's values against its plain version over the phase-2 grid,
+# whatever the storage type: bf16 products are exact, but the kernel and the
+# float32 matmul still sum them in different orders, and at B = 128,
+# k = tile_n (every score of the tile compared) sound runs read above 2e-6
+# in bf16 as in float32. A kernel that rounds its scores to bf16 reads far
+# above this limit; phase 2 measures both and checks that the limit parts them.
+TOPK_TOL = 1e-5
+SAMPLES = Path(__file__).resolve().parent / "samples"
 
 _T0 = time.perf_counter()
 
@@ -78,13 +101,49 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 def reset_counts() -> None:
     from ahrag_tpu_torch.ops.binmax import dense_binmax, dense_binmax2
+    from ahrag_tpu_torch.ops.tile_topk import tile_topk
     dense_binmax2.launches = 0
     dense_binmax.launches = 0
+    tile_topk.launches = 0
 
 
 def read_counts() -> dict:
     from ahrag_tpu_torch.ops.binmax import dense_binmax, dense_binmax2
-    return {"binmax2_cuda": dense_binmax2.launches, "binmax_cuda": dense_binmax.launches}
+    from ahrag_tpu_torch.ops.tile_topk import tile_topk
+    return {"binmax2_cuda": dense_binmax2.launches, "binmax_cuda": dense_binmax.launches,
+            "tile_topk_cuda": tile_topk.launches}
+
+
+def compare_topk(what: str, q, emb, vals, ids, ref_vals, ref_ids, tol: float,
+                 exact: bool = False) -> tuple[float, int]:
+    """A kernel's top-k (vals, ids) against its plain version's, slot by slot,
+    on any matching shapes [..., B, k] with global row ids. Values agree
+    within ``tol`` (``exact``: equal). Ids are equal, with every ``NEG_INF``
+    slot's id included; on float inputs two rows whose scores lie within
+    ``tol`` of each other may trade places (the kernel and the float32 matmul
+    sum in different orders), and such a swap counts only when the kernel's
+    row truly scores within ``tol`` of the slot's plain value. ``exact``
+    inputs are sums that float32 holds exactly, so there no swap is allowed.
+    Returns (max |vals - ref_vals|, number of swaps)."""
+    import torch
+    err = (vals - ref_vals).abs().max().item() if vals.numel() else 0.0
+    check(err <= (0.0 if exact else tol), f"{what}: values differ by {err}")
+    live = ref_vals > -1e29
+    check(bool((live == (vals > -1e29)).all()), f"{what}: NEG_INF slots differ")
+    differ = ids.long() != ref_ids.long()
+    check(not bool((differ & ~live).any()), f"{what}: a NEG_INF slot's id differs")
+    swaps = int(differ.sum())
+    if swaps:
+        check(not exact, f"{what}: {swaps} ids differ on exact inputs")
+        b = torch.arange(q.shape[0], device=q.device).view(-1, 1)
+        b = b.expand(ids.shape[-2], ids.shape[-1]).expand_as(ids)
+        true = (emb[ids.long()[differ]].double() * q[b[differ]].double()).sum(-1)
+        gap = (true - ref_vals[differ].double()).abs().max().item()
+        check(gap <= tol, f"{what}: {swaps} ids differ, not within a near tie ({gap})")
+        srt = torch.where(live, ids.long(), -1 - torch.arange(ids.shape[-1],
+                          device=ids.device)).sort(dim=-1).values
+        check(not bool((srt[..., 1:] == srt[..., :-1]).any()), f"{what}: a row twice")
+    return err, swaps
 
 
 def phase_kernels_vs_plain(dev) -> dict:
@@ -125,18 +184,92 @@ def phase_kernels_vs_plain(dev) -> dict:
     return err
 
 
-def kernel_row(name, kernel, plain, library, flops, nbytes, dtype, reps) -> dict:
-    """Times and error of one kernel at one shape (launches filled in later)."""
+def phase_tile_topk_vs_plain(dev) -> dict:
+    """The tile top-k kernel against its plain version over the grid: both
+    types, tile_n 256/512/1024, B 1/5/128, k 1/5/10 (and k = tile_n at B 5 and
+    128), n_valid short of N, a random mask with tile 1 fully masked. Exact
+    inputs (halves in [-1, 1]: every score is a float32-exact sum) must give
+    equal ids and values; unit vectors values within ``TOPK_TOL``. A control
+    (the plain values rounded to bf16, as a kernel that kept bf16 scores
+    would give) must read above ``TOPK_TOL``. Then the tie case: all rows
+    identical."""
+    import torch
+    from ahrag_tpu_torch.ops.tile_topk import (dense_topk_fused, dense_topk_fused_ref,
+                                               tile_topk)
+    gen = torch.Generator().manual_seed(1)
+    n, d = 6144, 384
+    err, swaps, cases = 0.0, 0, 0
+    sound = {}     # (dtype, tile_n) -> largest unit-vector error at B = 128, k = tile_n
+    control = 0.0
+
+    def draw(rows, family):
+        if family == "exact":
+            return torch.randint(-2, 3, (rows, d), generator=gen) / 2.0
+        x = torch.randn((rows, d), generator=gen)
+        return x / x.norm(dim=1, keepdim=True)
+
+    for dtype, tile_n, family in itertools.product(
+            (torch.bfloat16, torch.float32), (256, 512, 1024), ("exact", "unit")):
+        emb = draw(n, family).to(dev, dtype)
+        mask = torch.rand(n, generator=gen) > 0.2
+        mask[tile_n:2 * tile_n] = False
+        mask = mask.to(dev)
+        n_valid = n - 300
+        for b, k in [(b, k) for b in (1, 5, 128) for k in (1, 5, 10, tile_n)
+                     if k != tile_n or b > 1]:
+            q = draw(b, family).to(dev, dtype)
+            vals, ids = tile_topk(q, emb, n_valid, k, tile_n, mask)
+            rv, ri = dense_topk_fused_ref(q, emb, n_valid, k, tile_n, mask)
+            what = f"tile_topk {dtype} tile_n={tile_n} {family} B={b} k={k}"
+            e, sw = compare_topk(what, q, emb, vals, ids, rv, ri, TOPK_TOL,
+                                 exact=family == "exact")
+            check(bool((ids[1] == tile_n).all()), f"{what}: the masked tile's ids")
+            if family == "unit" and (b, k) == (128, tile_n):
+                sound[f"{dtype} tile_n={tile_n}"] = e
+                live = rv > -1e29
+                control = max(control, (rv.to(torch.bfloat16).float() - rv)[live]
+                              .abs().max().item())
+            if sw or k == tile_n:
+                log(f"  {what}: max|kernel-plain| {e:.3e}, {sw} near-tie swaps")
+            err, swaps, cases = max(err, e), swaps + sw, cases + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        emb = torch.zeros((1024, d), device=dev, dtype=dtype)
+        emb[:, 0] = 1.0
+        q = emb[:1].contiguous()
+        _, ids = tile_topk(q, emb, 1024, 5, 256)
+        check(ids[:, 0].tolist() == [[t * 256 + j for j in range(5)] for t in range(4)],
+              f"tie case per tile {dtype}: {ids[:, 0].tolist()}")
+        _, ids = dense_topk_fused(q, emb, 1024, 5, tile_n=256)
+        check(ids.tolist() == [[0, 1, 2, 3, 4]], f"tie case merged {dtype}: {ids.tolist()}")
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"  tile_topk: {cases} cases, max|kernel-plain| {err:.3e}, near-tie swaps "
+        f"{swaps} (unit vectors only); limit {TOPK_TOL:.1e}; at B=128, k=tile_n on unit "
+        f"vectors {json.dumps(sound)}; control (plain values rounded to bf16) "
+        f"{control:.3e}")
+    check(control > TOPK_TOL, f"the bf16-rounding control ({control}) passes the "
+          f"limit {TOPK_TOL}")
+    return {"tile_topk_cuda": err}
+
+
+def kernel_row(name, kernel, plain, library, flops, nbytes, dtype, reps,
+               compare=None, plain_reps=None) -> dict:
+    """Times and error of one kernel at one shape (launches filled in later).
+    ``compare(out, ref)`` checks the outputs and returns the error; by
+    default the largest absolute difference within the type's tolerance."""
     import torch
     out, ref = kernel(), plain()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
-    check(e <= TOL[dtype], f"{name} at the main-path shape: err {e} > {TOL[dtype]}")
+    if compare is None:
+        e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
+        check(e <= TOL[dtype], f"{name} at the main-path shape: err {e} > {TOL[dtype]}")
+    else:
+        e = compare(out, ref)
     del out, ref, outs, refs
     torch.cuda.synchronize()
     ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(plain, max(2, reps // 4))
+    plain_ms = cuda_ms(plain, plain_reps or max(2, reps // 4))
     library_ms = cuda_ms(library, reps)
     b_ms, b_by = bound(flops, nbytes, dtype)
     return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -205,12 +338,183 @@ def run_rung(dev, n_entities: int, n_queries: int, emb_dtype: str) -> dict:
     return {"gt": gt, "arrs": arrs, "q_dev": q_dev, "w": w, "rung": out}
 
 
+def run_flat(dev, emb, n_valid: int, q, dtype: str, label: str) -> dict:
+    """Flat exact top-k (k = 5) through ``dense_topk`` over a rung's corpus:
+    ids and values against ``dense_topk_ref`` on the card, batch time and qps
+    over 12 varied batches, and the kernel's row (its time, the plain
+    version's, the library's and the bound)."""
+    import torch
+    from ahrag_tpu_torch.ops import dense_topk, dense_topk_ref
+    from ahrag_tpu_torch.ops.tile_topk import dense_topk_fused_ref, tile_topk
+    k, (B, D), N = 5, q.shape, emb.shape[0]
+    reset_counts()   # the main path: dense_topk over the whole corpus
+    t0 = time.perf_counter()
+    vals, ids = dense_topk(q, emb, n_valid, k)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    batches = itertools.cycle([q] + [torch.roll(q, 1 + 7 * v, dims=0) for v in range(3)])
+    reps = 12
+    batch_ms = cuda_ms(lambda: dense_topk(emb=emb, q=next(batches), n_valid=n_valid,
+                                          k=k), reps)
+    counts = read_counts()
+    rv, ri = dense_topk_ref(q, emb, n_valid, k)
+    tol = TOPK_TOL
+    err, swaps = compare_topk(f"dense_topk {label}", q, emb, vals, ids, rv, ri, tol)
+    check(tuple(ids.shape) == (B, k) and bool(torch.isfinite(vals).all()),
+          f"dense_topk {label}: shape or values")
+    check(counts["tile_topk_cuda"] > 0, f"tile top-k kernel launched on the {label} path")
+    del rv, ri
+    T = N // 1024
+    esize = emb.element_size()
+    row = kernel_row(
+        "tile_topk_cuda",
+        lambda: tile_topk(q, emb, n_valid, k),
+        lambda: dense_topk_fused_ref(q, emb, n_valid, k),
+        lambda: torch.topk(torch.matmul(q, emb.T), k),
+        2.0 * B * N * D, N * D * esize + B * D * esize + T * B * k * 8, dtype, reps=10,
+        compare=lambda out, ref: compare_topk(f"tile_topk {label}", q, emb, *out, *ref,
+                                              tol)[0],
+        plain_reps=1)
+    out = {"shape": label, "n_valid": n_valid, "B": B, "k": k, "batch_ms": batch_ms,
+           "qps": B / batch_ms * 1e3, "first_call_s": first_s, "batches_timed": reps,
+           "launches": counts, "max_abs_err_vs_ref": err, "near_tie_swaps": swaps,
+           "kernel": row}
+    log(f"  {json.dumps(out)}")
+    return out
+
+
+def sample_questions(n: int) -> list:
+    """The first ``n`` questions of the shared-KB samples, train, dev, test."""
+    qs = []
+    for split in ("train", "dev", "test"):
+        path = SAMPLES / f"synth_v4_shared_{split}.jsonl"
+        qs += [json.loads(ln)["question"] for ln in path.read_text().splitlines() if ln.strip()]
+    return qs[:n]
+
+
+def host_ms(fn, reps: int) -> tuple[float, object]:
+    """Median host milliseconds of ``fn`` over ``reps`` calls, and its last result."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def phase_serve_buckets(dev, enc, idf, r1, gt_cpu) -> dict:
+    """The first 256 sample questions at buckets 4, 16, 64 and 256: native
+    featurize + pack against the Python featurizer (bit for bit, both timed),
+    then the 64 bucket through ``encode_and_search`` on the card and the CPU."""
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.graph.search import SearchWeights
+    from ahrag_tpu_torch.models.encoder.hashed import _project_normalize_sparse
+    from ahrag_tpu_torch.serve import batch_bucket, encode_and_search, pack_coo, pack_queries
+    questions = sample_questions(256)
+    check(len(questions) == 256, "256 sample questions")
+
+    def python_pack(qs):
+        padded = qs + [""] * (batch_bucket(len(qs)) - len(qs))
+        counts = enc._count_matrix(padded)
+        rows, cols = np.nonzero(counts)
+        return pack_coo(rows, cols, counts[rows, cols], len(padded), enc.buckets)
+
+    featurize = {}
+    for n in (4, 16, 64, 256):
+        qs = questions[:n]
+        native_ms, (_, n_rows, packed) = host_ms(lambda: pack_queries(qs, enc), 5)
+        python_ms, py_packed = host_ms(lambda: python_pack(qs), 3 if n < 256 else 1)
+        check(n_rows == n and packed.shape == py_packed.shape
+              and np.array_equal(packed, py_packed),
+              f"bucket {n}: native packed array differs from the Python one")
+        featurize[n] = {"native_ms": native_ms, "python_ms": python_ms,
+                        "packed": list(packed.shape)}
+        log(f"  bucket {n}: packed {packed.shape} bit-identical; featurize+pack native "
+            f"{native_ms:.3f} ms, Python {python_ms:.3f} ms")
+    _, n_rows, packed = pack_queries(questions[:64], enc)
+    reset_counts()
+    t0 = time.perf_counter()
+    out_gpu = encode_and_search(packed, enc._proj, idf.to(dev), r1["gt"], r1["w"],
+                                n_rows=n_rows, top_k=5, member_top_m=5).cpu()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    out_cpu = encode_and_search(packed, enc._proj.cpu(), idf, gt_cpu,
+                                SearchWeights.create(device="cpu"),
+                                n_rows=n_rows, top_k=5, member_top_m=5)
+    score_err = (out_gpu - out_cpu).abs().max().item()
+    # the bf16 graph scores q rounded to bf16: where the float32 encodes on the
+    # card and the CPU differ in a last bit across a rounding midpoint, a
+    # component of q moves by one bf16 step. The semantic score, and the
+    # rerank score (alpha < 1 times it plus terms that do not depend on q),
+    # then move by at most sum_d |dq_d| * max_r |emb[r, d]| over the flipped
+    # components d of that query; the limit is that plus the 1e-5 of an
+    # unflipped run
+    key = torch.from_numpy(packed[:, 0]).long()
+    rows, cols = key // enc.buckets, key % enc.buckets
+    vals = torch.from_numpy(packed[:, 1])
+    q_card = _project_normalize_sparse(rows.to(dev), cols.to(dev), vals.to(dev),
+                                       enc._proj, idf.to(dev), n_rows).cpu()
+    q_cpu = _project_normalize_sparse(rows, cols, vals, enc._proj.cpu(), idf, n_rows)
+    q_err = (q_card - q_cpu).abs().max().item()
+    dq = (q_card.to(torch.bfloat16).float() - q_cpu.to(torch.bfloat16).float()).abs()
+    flips = int((dq > 0).sum())
+    emb_absmax = r1["gt"].emb.float().abs().amax(dim=0).cpu()
+    score_tol = 1e-5 + (dq * emb_absmax).sum(dim=1).max().item()
+    log(f"  bucket 64 through encode_and_search: {serve_ms:.1f} ms, launches {counts}, "
+        f"max|cuda-cpu| {score_err:.3e}; encoded q max|cuda-cpu| {q_err:.3e}, "
+        f"{flips} of {q_card.numel()} components round to another bf16 value, "
+        f"score limit {score_tol:.3e}")
+    check(out_gpu[..., 0].long().tolist() == out_cpu[..., 0].long().tolist(),
+          "bucket 64: serve ids on the card differ from the CPU's")
+    check(bool((out_gpu[..., 3] == out_cpu[..., 3]).all()), "bucket 64: valid flags")
+    check(q_err <= 1e-5, f"bucket 64: encoded queries differ by {q_err}")
+    check(score_err <= score_tol, f"bucket 64: serve scores differ by {score_err} "
+          f"(tolerance {score_tol}, {flips} bf16 flips)")
+    return {"featurize": featurize, "bucket64_ms": serve_ms, "bucket64_launches": counts}
+
+
+def phase_encode(dev, d: int) -> dict:
+    """``encode_device`` over every non-empty line of the sample corpus, with an
+    IDF from ``document_frequencies``, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.models.encoder.hashed import HashedNGramEncoder
+    lines = []
+    for split in ("train", "dev", "test"):
+        text = (SAMPLES / f"synth_v4_shared_corpus_{split}.txt").read_text()
+        lines += [ln for ln in text.splitlines() if ln.strip()]
+    enc = HashedNGramEncoder(dim=d, device=dev)
+    enc_cpu = HashedNGramEncoder(dim=d, device="cpu")
+    enc_cpu._proj = enc._proj.cpu()
+    df_ms, df = host_ms(lambda: enc.document_frequencies(lines), 1)
+    idf = (np.log((1.0 + len(lines)) / (1.0 + df)) + 1.0).astype(np.float32)
+    enc.encode_device(lines[:16], idf=idf)
+    torch.cuda.synchronize()
+
+    def on_card():
+        out = enc.encode_device(lines, idf=idf)
+        torch.cuda.synchronize()
+        return out
+    card_ms, emb = host_ms(on_card, 3)
+    cpu_ms, emb_cpu = host_ms(lambda: enc_cpu.encode_device(lines, idf=idf), 1)
+    err = (emb.cpu() - emb_cpu).abs().max().item()
+    out = {"lines": len(lines), "document_frequencies_ms": df_ms, "card_ms": card_ms,
+           "cpu_ms": cpu_ms, "max_abs_err": err}
+    log(f"  {json.dumps(out)}")
+    check(tuple(emb.shape) == (len(lines), d) and bool(torch.isfinite(emb).all()),
+          "encode_device shape and values")
+    check(err <= 1e-5, f"encode_device card vs CPU differ by {err}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
+    from ahrag_tpu_torch import native
     from ahrag_tpu_torch.ops import _build
     from ahrag_tpu_torch.ops.binmax import (dense_binmax, dense_binmax2,
                                             dense_binmax2_ref, dense_binmax_ref)
@@ -221,19 +525,21 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    t = time.perf_counter()
     info = _build.build()
+    native_info = native.build()
     _build.load_library()
+    native.load_library()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
     log(f"phase 1: kernels built in {info['seconds']:.1f}s (built={info['built']}) "
-        f"-> {info['path']}")
+        f"-> {info['path']}; native featurizer built in {native_info['seconds']:.1f}s "
+        f"(built={native_info['built']}) -> {native_info['path']}")
     for ln in regs:
         log(f"  ptxas: {ln}")
 
     t = time.perf_counter()
     errs = phase_kernels_vs_plain(dev)
+    errs.update(phase_tile_topk_vs_plain(dev))
     log(f"phase 2: kernels vs plain done in {time.perf_counter() - t:.1f}s: {errs}")
-
     t = time.perf_counter()
     log("phase 3: 1M-entity rung, bf16, B=512")
     r1 = run_rung(dev, 1048576, 512, "bfloat16")
@@ -278,10 +584,18 @@ def main() -> int:
         "float32", reps=10)
     log(f"phase 4 done in {time.perf_counter() - t:.1f}s; binmax2 at the f32 "
         f"chunk shape (B=1024, n_pad {n2}): {json.dumps(f32_row)}")
+
+    t = time.perf_counter()
+    log("phase 5: flat exact top-k through dense_topk, 1M bf16 B=512 and 131k f32 B=2048")
+    flat = [run_flat(dev, gt.emb, gt.n_nodes, q, "bfloat16", "1M bf16 B=512"),
+            run_flat(dev, gt2.emb, gt2.n_nodes, r2["q_dev"].contiguous(), "float32",
+                     "131k f32 B=2048")]
+    rows["tile_topk_cuda"] = flat[0]["kernel"]
+    log(f"phase 5 done in {time.perf_counter() - t:.1f}s")
     del r2, gt2, q2, mask2
 
     t = time.perf_counter()
-    log("phase 5: serve 4 text queries against the 1M-node graph")
+    log("phase 6: serve text queries against the 1M-node graph")
     import numpy as np
     from ahrag_tpu_torch.bench_data import bench_tensors
     from ahrag_tpu_torch.graph.search import SearchWeights
@@ -314,18 +628,31 @@ def main() -> int:
     check(bool((out_gpu[:n_q, :, 3] == out_cpu[:n_q, :, 3]).all()), "serve valid flags")
     check(score_err <= 1e-5, f"serve scores differ by {score_err}")
     check(serve_counts["binmax_cuda"] > 0, "binmax kernel launched by the serve bucket")
-    log(f"phase 5 done in {time.perf_counter() - t:.1f}s")
+    served = phase_serve_buckets(dev, enc, idf, r1, gt_cpu)
+    log(f"phase 6 done in {time.perf_counter() - t:.1f}s")
 
-    path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k] for k in rows}
+    t = time.perf_counter()
+    log("phase 7: encode_device over the sample corpus, card and CPU")
+    encoded = phase_encode(dev, d)
+    log(f"phase 7 done in {time.perf_counter() - t:.1f}s")
+
+    path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
+                   + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
+                   for k in rows}
     kernels = []
-    for name, replaces in (("binmax2_cuda", "ahrag_tpu/ops/topk.py:651"),
-                           ("binmax_cuda", "ahrag_tpu/ops/topk.py:554")):
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "ahrag_tpu_torch/ops/csrc/binmax.cu",
+    for name, source, replaces in (
+            ("binmax2_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:651"),
+            ("binmax_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:554"),
+            ("tile_topk_cuda", "ahrag_tpu_torch/ops/csrc/tile_topk.cu",
+             "ahrag_tpu/ops/topk.py:459")):
+        kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": path_counts[name],
                         **rows[name]})
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    *(f["max_abs_err_vs_ref"] for f in flat))
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

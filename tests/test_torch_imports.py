@@ -85,3 +85,37 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+_NEW_ENTRY_POINTS = """
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import torch
+from ahrag_tpu_torch.models.encoder import create_encoder
+from ahrag_tpu_torch.ops import dense_topk, dense_topk_fused
+try:
+    create_encoder()
+except RuntimeError as e:
+    assert "CUDA" in str(e), e
+else:
+    raise AssertionError("create_encoder ran without a card and without device='cpu'")
+q, e = torch.zeros(2, 8), torch.zeros(1024, 8)
+assert dense_topk(q, e, 1024, 3)[1].shape == (2, 3)     # CPU tensors: the plain path
+print("ok")
+"""
+
+
+def test_new_entry_points_refuse_cpu_fallback():
+    proc = _run(_NEW_ENTRY_POINTS.format(blocked=BLOCKED), ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ok" in proc.stdout
+
+
+def test_no_try_in_the_port():
+    """No kernel falls back to its plain version, and no native call to
+    Python, on failure: the port has no ``try`` statement at all."""
+    for path in PORT_FILES:
+        tries = [n.lineno for n in ast.walk(ast.parse(path.read_text()))
+                 if isinstance(n, (ast.Try, getattr(ast, "TryStar", ast.Try)))]
+        assert not tries, f"{path.relative_to(ROOT)} has a try at lines {tries}"
