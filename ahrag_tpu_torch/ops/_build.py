@@ -2,10 +2,13 @@
 
 ``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library lands in ``ahrag_tpu_torch/_build/`` (ignored by
-git) under a name derived from the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. It is built at first use, never at
-import.
+takes seconds). The kernels' TMA descriptors need the driver API's
+``cuTensorMapEncodeTiled``; the library fetches it at run time through the
+runtime's ``cudaGetDriverEntryPoint`` (``csrc/common.cuh``), so nothing links
+against ``libcuda`` and the flags carry no ``-lcuda``. The library lands in
+``ahrag_tpu_torch/_build/`` (ignored by git) under a name derived from the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. It is built at first use, never at import.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# dynamic shared memory a block may opt in to on Hopper (227 KB)
+SMEM_LIMIT = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

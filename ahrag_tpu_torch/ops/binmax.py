@@ -6,6 +6,11 @@ query the scores ``q . emb[r]`` (float32 accumulation) are masked (rows at or
 past ``n_valid``, or with ``mask`` false, score ``NEG_INF``) and reduced to 128
 strided bins: bin ``j`` of tile ``t`` holds rows ``t * tile_n + j + 128 * i``.
 
+``dense_binmax2`` (the hybrid-search path) runs bf16 products on the tensor
+cores (wgmma, TMA loads) and float32 products as IEEE FMA on register tiles;
+``dense_binmax`` runs float32 FMA on widened operands. Each is exact in its
+products, so kernel and plain version differ only in summation order.
+
 Each wrapper launches the hand-written CUDA kernel (``csrc/binmax.cu``) for a
 CUDA tensor, counting the launch in its ``launches`` attribute, and takes the
 plain PyTorch version (``*_ref``) only for a tensor on the CPU. There is no
@@ -18,9 +23,47 @@ from typing import Tuple
 import torch
 
 from ahrag_tpu_torch.device import f32_matmul
-from ahrag_tpu_torch.ops._build import launch_args
+from ahrag_tpu_torch.ops._build import SMEM_LIMIT, launch_args
 
 NEG_INF = -1e30
+
+
+def _bf16_smem(d: int, qc: int) -> int:
+    """A bf16 ``ahrag_binmax2`` block at query chunk ``qc``: 1 KB of alignment
+    slack, a 4-stage ring of 16 KB, the resident chunk (qc rows of 128 bytes
+    per 64 elements of d, rounded up), the supermax exchange (8 * qc float32)
+    and 9 barriers."""
+    return 1024 + 4 * 16384 + -(-d // 64) * qc * 128 + 8 * qc * 4 + 9 * 8
+
+
+def binmax2_chunk(d: int) -> int:
+    """Queries per bf16 ``ahrag_binmax2`` block (``csrc/binmax.cu``): 128,
+    or 32 where 128 of them do not fit in shared memory (d > 576)."""
+    return 128 if _bf16_smem(d, 128) <= SMEM_LIMIT else 32
+
+
+def binmax2_smem_bytes(d: int, is_bf16: bool) -> int:
+    """Dynamic shared memory of one ``ahrag_binmax2`` block: bf16 at the
+    chunk ``binmax2_chunk`` picks; float32 a 4-stage ring whose 32 KB stages
+    hold 128 corpus rows and the 128 queries of one 128-byte box of d, the
+    consumers' running maxima (256 threads x 64 float32), 9 barriers and 1 KB
+    of alignment slack, whatever d."""
+    if is_bf16:
+        return _bf16_smem(d, binmax2_chunk(d))
+    return 1024 + 4 * (16384 + 128 * 128) + 256 * 64 * 4 + 9 * 8
+
+
+def _kernel_check(q: torch.Tensor, emb: torch.Tensor) -> None:
+    """The shapes ``ahrag_binmax2`` takes beyond ``_check``'s: raises
+    ValueError before anything launches."""
+    B, D = q.shape
+    is_bf16 = emb.dtype == torch.bfloat16
+    if B == 0 or B % 128:
+        raise ValueError(f"dense_binmax2 takes B % 128 == 0, got B={B}")
+    if binmax2_smem_bytes(D, is_bf16) > SMEM_LIMIT:
+        raise ValueError(f"dense_binmax2 at D={D} needs "
+                         f"{binmax2_smem_bytes(D, is_bf16)} bytes of shared memory, "
+                         f"more than the {SMEM_LIMIT} a block has")
 
 
 def _check(q: torch.Tensor, emb: torch.Tensor, mask: torch.Tensor,
@@ -77,15 +120,13 @@ def dense_binmax2(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
 
     ``trivial`` skips the masking; it is sound only when every masked-out row
     has a zero embedding (see ``GraphTensors.mask_trivial``). The kernel
-    takes B % 128 == 0, as the TPU kernel did."""
+    takes B % 128 == 0, as the TPU kernel did, and D % 8 == 0 (in bf16 at
+    most 2560, the resident query chunk)."""
     _check(q, emb, mask, tile_n)
     if emb.device.type == "cpu":
         return dense_binmax2_ref(q, emb, n_valid, mask, tile_n, trivial)
+    _kernel_check(q, emb)
     B, N = q.shape[0], emb.shape[0]
-    if B == 0 or B % 128:
-        raise ValueError(f"dense_binmax2 takes B % 128 == 0, got B={B}")
-    if N // tile_n > 65535:
-        raise ValueError("at most 65535 tiles per launch")
     lib, is_bf16, stream = launch_args(q, emb, mask)
     bins = torch.empty((N // tile_n, B, 128), dtype=torch.float32, device=emb.device)
     smax = torch.empty((B, N // tile_n), dtype=torch.float32, device=emb.device)

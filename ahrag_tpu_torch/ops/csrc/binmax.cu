@@ -4,30 +4,40 @@
 //   ahrag_binmax2 <- dense_binmax2_pallas / _binmax2_kernel (bins [T, B, 128] + supermax [B, T])
 //   ahrag_binmax  <- dense_binmax_pallas  / _binmax_kernel  (bins transposed to [B, T * 128])
 //
-// For each corpus tile t of tile_n rows and each query b the kernel computes the
-// scores s[b, r] = q[b] . emb[r] (float32 accumulation), sets rows with
-// r >= n_valid or mask[r] == 0 to -1e30 unless the mask is trivial, and reduces the
+// For each corpus tile t of tile_n rows and each query b the kernels compute the
+// scores s[b, r] = q[b] . emb[r] (float32 accumulation), set rows with
+// r >= n_valid or mask[r] == 0 to -1e30 unless the mask is trivial, and reduce the
 // tile to 128 STRIDED bins: bin j of tile t holds rows t * tile_n + j + 128 * i.
-// The supermax variant also emits max_j bins[t, b, j] as smax[b, t].
+// ahrag_binmax2 also emits max_j bins[t, b, j] as smax[b, t].
 //
 // Bound on an H100 SXM at the main-path shape (1,067,008 x 384 bf16 corpus, B = 512,
 // tile_n = 1024): 2 * B * N * D = 4.196e11 FLOP, 0.42 ms at 989 TFLOP/s bf16 dense;
 // 819 MB of corpus + 273 MB of bins + 2 MB of supermax, 0.33 ms at 3.35 TB/s. So the
-// bound is ~0.42 ms, set by compute. This first version runs on the CUDA cores in
-// float32 FMA and is far from that bound; moving the products onto wgmma with TMA
-// loads is later work.
+// bound is ~0.42 ms, set by compute on the tensor cores. In float32 (131k rows,
+// B = 1024 per chunk) it is 1.59 ms at 67 TFLOP/s on the CUDA cores.
 //
-// Design, right and simple first:
-//   - a block owns one tile and a chunk of QC queries; its 128 threads are the
-//     128 lanes, so thread j owns bin j and walks the tile_n / 128 rows of that bin;
-//   - the query chunk is widened to float32 once and staged in shared memory, where
-//     every thread reads the same address (a broadcast, free of bank conflicts);
-//   - each thread keeps a running max per query over its rows, so no [B, tile_n]
-//     score tile ever exists;
-//   - staging and products as in common.cuh: float32 FMA on widened operands, so the
-//     kernel agrees with a float32 matmul up to summation order;
-//   - blockIdx.x walks the query chunks of one tile, so the blocks that re-read a
-//     tile run together and find it in L2.
+// ahrag_binmax2 (the main path) runs on the TMA ring of common.cuh:
+//   - a persistent grid, one block per SM, works through the (query chunk,
+//     tile) items with the chunks of one tile taken up together, so that their
+//     requests for it can be served from L2 (not measured: no DRAM counter is
+//     read);
+//   - one producer warp streams 16 KB corpus stages (128 rows x one 128-byte box
+//     of D) through a 4-deep mbarrier ring;
+//   - bf16: the block's chunk of QC = 128 queries (32 where 128 of them do not
+//     fit, D > 576) stays resident as the wgmma N side; two consumer
+//     warpgroups each take 64 rows of a slice as the M side, QC / 2
+//     accumulators a thread;
+//   - float32: the chunk of 128 queries streams through the ring beside the
+//     corpus; each of the 256 consumer threads runs IEEE fmaf on a register
+//     tile of 8 rows x 8 queries, its running max in shared memory;
+//   - slice i's row r is bin r's i-th row, so the strided bin max is an
+//     elementwise fmaxf of the accumulators into a running-max fragment of the
+//     same layout, after masking by row: no score tile, no shuffles;
+//   - bins are stored from registers; the supermax is reduced by shuffles within
+//     a warp (and in bf16 through shared memory across the 8 consumer warps).
+// ahrag_binmax (queries not a multiple of 128; eps calibration): float32 FMA on the
+//   CUDA cores (score_row), one thread per bin, 32 queries a block. Not yet
+//   redesigned.
 
 #include <stdint.h>
 
@@ -36,18 +46,178 @@
 namespace {
 
 using ahrag::kNegInf;
+using ahrag::kSmemLimit;
 
-constexpr int kLanes = 128;      // bins per tile = threads per block
-constexpr int kQC = 32;          // queries per block
+constexpr int kLanes = 128;      // bins per tile
+// supermax exchange of a bf16 QC-query chunk: [8 consumer warps][QC]
+__host__ __device__ constexpr size_t red_bytes(int QC) { return (size_t)8 * QC * sizeof(float); }
 
-template <typename T, bool kSupermax, bool kTrivial>
+// ---- ahrag_binmax2, bf16 ---------------------------------------------------
+
+template <bool kTrivial, int QC>
+__global__ void __launch_bounds__(ahrag::kRingThreads, 1)
+binmax2_bf16_kernel(const __grid_constant__ CUtensorMap emb_map,
+                    const __grid_constant__ CUtensorMap q_map,
+                    const uint8_t* __restrict__ mask, long long n_valid, int B, int D,
+                    int tile_n, int num_tiles, float* __restrict__ bins,
+                    float* __restrict__ smax, int chunks) {
+  extern __shared__ uint8_t smem_raw[];
+  ahrag::Ring<__nv_bfloat16, QC> ring(smem_raw, D, red_bytes(QC));
+  float* red = reinterpret_cast<float*>(ring.extra);   // [8 warps][QC queries]
+  const int c0 = (int)(blockIdx.x % chunks) * QC;     // fixed: gridDim.x % chunks == 0
+  ring.init();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == ahrag::kConsumers / 32) {           // producer warp
+    if (lane == 0) ring.produce(&emb_map, &q_map, D, tile_n, chunks, num_tiles);
+    return;
+  }
+  const int wg = warp >> 2;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);   // rows r0 and r0 + 8 of the warpgroup's 64
+  const int bin0 = 64 * wg + r0;
+  float acc[QC / 2], mx[QC / 2];
+  ahrag::mbar_wait(ring.qbar, 0);
+
+  for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
+    const int t = (int)(it / chunks);
+#pragma unroll
+    for (int x = 0; x < QC / 2; ++x) mx[x] = -INFINITY;
+    for (int i = 0; i < tile_n / kLanes; ++i) {
+      ahrag::bf16_slice(acc, ring, D);
+      const long long row = (long long)t * tile_n + kLanes * i + bin0;
+      const bool ok0 = kTrivial || (row < n_valid && mask[row] != 0);
+      const bool ok1 = kTrivial || (row + 8 < n_valid && mask[row + 8] != 0);
+#pragma unroll
+      for (int x = 0; x < QC / 2; ++x)
+        mx[x] = fmaxf(mx[x], ((x & 2) ? ok1 : ok0) ? acc[x] : kNegInf);
+    }
+
+    // bins [T, B, 128]: register 4j + h is query 8j + 2 (lane % 4) + (h & 1),
+    // bin bin0 + 8 (h >> 1)
+#pragma unroll
+    for (int j = 0; j < QC / 8; ++j) {
+      const int b = c0 + 8 * j + 2 * (lane & 3);
+      if (b < B) {
+        float* o = bins + ((size_t)t * B + b) * kLanes + bin0;
+        o[0] = mx[4 * j];
+        o[8] = mx[4 * j + 2];
+      }
+      if (b + 1 < B) {
+        float* o = bins + ((size_t)t * B + b + 1) * kLanes + bin0;
+        o[0] = mx[4 * j + 1];
+        o[8] = mx[4 * j + 3];
+      }
+    }
+    // supermax: over the warp's 16 rows by shuffles (lane bits 2-4), then over
+    // the 8 consumer warps through shared memory
+#pragma unroll
+    for (int j = 0; j < QC / 8; ++j) {
+      float v0 = fmaxf(mx[4 * j], mx[4 * j + 2]);
+      float v1 = fmaxf(mx[4 * j + 1], mx[4 * j + 3]);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, off));
+        v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, off));
+      }
+      if (lane < 4) {
+        red[warp * QC + 8 * j + 2 * lane] = v0;
+        red[warp * QC + 8 * j + 2 * lane + 1] = v1;
+      }
+    }
+    ahrag::consumers_sync();
+    if (threadIdx.x < QC && c0 + threadIdx.x < B) {
+      float v = red[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < ahrag::kConsumers / 32; ++w) v = fmaxf(v, red[w * QC + threadIdx.x]);
+      smax[(size_t)(c0 + threadIdx.x) * num_tiles + t] = v;
+    }
+    ahrag::consumers_sync();                     // red is free for the next tile
+  }
+}
+
+// ---- ahrag_binmax2, float32 ------------------------------------------------
+
+constexpr int kQCf = 128;                        // queries per float32 item
+using F32 = ahrag::F32Tile<kQCf, 8>;             // 8 rows x 8 queries a thread
+// Each consumer thread's running max (8 x 8) lives in shared memory, as 16
+// float4 at mx_s[k * 256 + tid] (consecutive lanes, consecutive 16 bytes): in
+// registers beside the 64 accumulators it spilled, since a block of 9 warps
+// puts 3 on one SM sub-partition and so gets at most 168 registers a thread.
+// Component c of float4 k holds row i = k / 2, query j = 4 (k % 2) + c.
+constexpr size_t kMxBytes = (size_t)16 * ahrag::kConsumers * sizeof(float4);
+
+template <bool kTrivial>
+__global__ void __launch_bounds__(ahrag::kRingThreads, 1)
+binmax2_f32_kernel(const __grid_constant__ CUtensorMap emb_map,
+                   const __grid_constant__ CUtensorMap q_map,
+                   const uint8_t* __restrict__ mask, long long n_valid, int B, int D,
+                   int tile_n, int num_tiles, float* __restrict__ bins,
+                   float* __restrict__ smax, int chunks) {
+  extern __shared__ uint8_t smem_raw[];
+  ahrag::Ring<float, kQCf> ring(smem_raw, D, kMxBytes);
+  float4* mx_s = reinterpret_cast<float4*>(ring.extra) + threadIdx.x;
+  const float* mx = reinterpret_cast<const float*>(mx_s);     // mx[4 * 256 * k + c]
+  ring.init();
+  if (threadIdx.x >= ahrag::kConsumers) {         // producer warp
+    if (threadIdx.x == ahrag::kConsumers)
+      ring.produce(&emb_map, &q_map, D, tile_n, chunks, num_tiles);
+    return;
+  }
+  constexpr int kS = ahrag::kConsumers;
+  for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
+    const int c0 = (int)(it % chunks) * kQCf, t = (int)(it / chunks);
+    const long long base = (long long)t * tile_n;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) mx_s[k * kS] = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    for (int sl = 0; sl < tile_n / kLanes; ++sl) {
+      float acc[8][F32::kQN];
+      ahrag::f32_slice<kQCf, 8>(acc, ring, D);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long row = base + (long long)kLanes * sl + F32::row(i);
+        const bool ok = kTrivial || (row < n_valid && mask[row] != 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float4 m = mx_s[(2 * i + h) * kS];
+          m.x = fmaxf(m.x, ok ? acc[i][4 * h] : kNegInf);
+          m.y = fmaxf(m.y, ok ? acc[i][4 * h + 1] : kNegInf);
+          m.z = fmaxf(m.z, ok ? acc[i][4 * h + 2] : kNegInf);
+          m.w = fmaxf(m.w, ok ? acc[i][4 * h + 3] : kNegInf);
+          mx_s[(2 * i + h) * kS] = m;
+        }
+      }
+    }
+    // bins (16 lanes of one query: 64 bytes); the supermax by shuffles over
+    // those 16 lanes
+#pragma unroll
+    for (int j = 0; j < F32::kQN; ++j) {
+      const int b = c0 + F32::query(j);
+      float v = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = mx[4 * kS * (2 * i + j / 4) + j % 4];
+        if (b < B) bins[((size_t)t * B + b) * kLanes + F32::row(i)] = x;
+        v = fmaxf(v, x);
+      }
+#pragma unroll
+      for (int off = 1; off < F32::kTX; off <<= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (threadIdx.x % F32::kTX == 0 && b < B) smax[(size_t)b * num_tiles + t] = v;
+    }
+  }
+}
+
+// ---- ahrag_binmax (score_row) ---------------------------------------------
+
+constexpr int kQC = 32;          // queries per ahrag_binmax block
+
+template <typename T>
 __global__ void __launch_bounds__(kLanes)
 binmax_kernel(const T* __restrict__ q, const T* __restrict__ emb,
               const uint8_t* __restrict__ mask, long long n_valid, int B, int D,
-              int tile_n, float* __restrict__ bins, float* __restrict__ smax) {
+              int tile_n, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);          // [kQC][D]
-  __shared__ float red[kLanes / 32][kQC];
 
   const int j = threadIdx.x;
   const int c0 = blockIdx.x * kQC;
@@ -66,81 +236,80 @@ binmax_kernel(const T* __restrict__ q, const T* __restrict__ emb,
     const long long row = (long long)t * tile_n + j + (long long)kLanes * i;
     float dot[kQC];
     ahrag::score_row<kQC>(emb + row * D, q_s, D, dot);
-    const bool ok = kTrivial || (row < n_valid && mask[row] != 0);
+    const bool ok = row < n_valid && mask[row] != 0;
 #pragma unroll
     for (int b = 0; b < kQC; ++b) best[b] = fmaxf(best[b], ok ? dot[b] : kNegInf);
   }
 
 #pragma unroll
-  for (int b = 0; b < kQC; ++b) {
-    if (c0 + b < B) {
-      const size_t out = kSupermax
-          ? ((size_t)t * B + c0 + b) * kLanes + j                      // [T, B, 128]
-          : (size_t)(c0 + b) * num_tiles * kLanes + (size_t)t * kLanes + j;  // [B, T*128]
-      bins[out] = best[b];
-    }
-  }
-
-  if (kSupermax) {
-    const int warp = j >> 5, lane = j & 31;
-#pragma unroll
-    for (int b = 0; b < kQC; ++b) {
-      float v = best[b];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) red[warp][b] = v;
-    }
-    __syncthreads();
-    if (j < kQC && c0 + j < B) {
-      float v = red[0][j];
-#pragma unroll
-      for (int w = 1; w < kLanes / 32; ++w) v = fmaxf(v, red[w][j]);
-      smax[(size_t)(c0 + j) * num_tiles + t] = v;
-    }
-  }
+  for (int b = 0; b < kQC; ++b)
+    if (c0 + b < B)
+      out[(size_t)(c0 + b) * num_tiles * kLanes + (size_t)t * kLanes + j] = best[b];   // [B, T*128]
 }
 
-template <typename T, bool kSupermax, bool kTrivial>
-int launch(const void* q, const void* emb, const void* mask, long long n_valid, int B,
-           long long N, int D, int tile_n, void* bins, void* smax, void* stream) {
+template <typename T, bool kTrivial, int QC, typename Kernel>
+int launch2(Kernel kern, const void* q, const void* emb, const void* mask, long long n_valid,
+            int B, long long N, int D, int tile_n, size_t extra, void* bins, void* smax,
+            cudaStream_t stream) {
   const long long num_tiles = N / tile_n;
-  const dim3 grid((B + kQC - 1) / kQC, (unsigned)num_tiles);
+  return (int)ahrag::launch_ring<T, QC>(
+      kern, q, emb, B, N, D, num_tiles, ahrag::RingSmem<T, QC>::bytes(D, extra), stream,
+      (const uint8_t*)mask, n_valid, B, D, tile_n, (int)num_tiles, (float*)bins, (float*)smax);
+}
+
+// bf16 in chunks of 128 queries where they fit in shared memory (D <= 576),
+// else of 32; float32 in chunks of 128.
+template <bool kTrivial>
+int launch2_typed(int is_bf16, const void* q, const void* emb, const void* mask,
+                  long long n_valid, int B, long long N, int D, int tile_n, void* bins,
+                  void* smax, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (!is_bf16)
+    return launch2<float, kTrivial, kQCf>(binmax2_f32_kernel<kTrivial>, q, emb, mask, n_valid,
+                                          B, N, D, tile_n, kMxBytes, bins, smax, s);
+  if (ahrag::RingSmem<bf16, 128>::bytes(D, red_bytes(128)) <= kSmemLimit)
+    return launch2<bf16, kTrivial, 128>(binmax2_bf16_kernel<kTrivial, 128>, q, emb, mask,
+                                        n_valid, B, N, D, tile_n, red_bytes(128), bins, smax, s);
+  return launch2<bf16, kTrivial, 32>(binmax2_bf16_kernel<kTrivial, 32>, q, emb, mask, n_valid,
+                                     B, N, D, tile_n, red_bytes(32), bins, smax, s);
+}
+
+template <typename T>
+int launch1(const void* q, const void* emb, const void* mask, long long n_valid, int B,
+            long long N, int D, int tile_n, void* out, cudaStream_t stream) {
+  const dim3 grid((B + kQC - 1) / kQC, (unsigned)(N / tile_n));
   const size_t smem = (size_t)kQC * D * sizeof(float);
-  auto kern = binmax_kernel<T, kSupermax, kTrivial>;
-  // the static reduction buffer counts against the same 48 KB default, so
-  // opt in to the dynamic size on every launch
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = binmax_kernel<T>;
+  const cudaError_t err = ahrag::opt_in(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kLanes, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)emb, (const uint8_t*)mask, n_valid, B, D, tile_n,
-      (float*)bins, (float*)smax);
+  kern<<<grid, kLanes, smem, stream>>>((const T*)q, (const T*)emb, (const uint8_t*)mask,
+                                       n_valid, B, D, tile_n, (float*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Shapes (checked by the Python wrapper): q [B, D] and emb [N, D] of one type
-// (is_bf16 ? bf16 : float32), contiguous and 16-byte aligned, D % 8 == 0,
-// N % tile_n == 0, tile_n % 128 == 0; mask [N] bool. Returns cudaGetLastError().
+// (is_bf16 ? bf16 : float32), contiguous and 16-byte aligned, N % tile_n == 0,
+// tile_n % 128 == 0, D % 8 == 0; mask [N] bool. ahrag_binmax2: B % 128 == 0 and
+// (bf16) the resident query chunk within the shared memory a block may opt in to
+// (D <= 2560). Returns a cudaError_t code (cudaErrorInvalidValue when a TMA
+// descriptor cannot be made).
 extern "C" int ahrag_binmax2(const void* q, const void* emb, const void* mask,
                              long long n_valid, int B, long long N, int D, int tile_n,
                              int is_bf16, int trivial, void* bins, void* smax,
                              void* stream) {
-  if (is_bf16) {
-    return trivial
-        ? launch<__nv_bfloat16, true, true>(q, emb, mask, n_valid, B, N, D, tile_n, bins, smax, stream)
-        : launch<__nv_bfloat16, true, false>(q, emb, mask, n_valid, B, N, D, tile_n, bins, smax, stream);
-  }
-  return trivial
-      ? launch<float, true, true>(q, emb, mask, n_valid, B, N, D, tile_n, bins, smax, stream)
-      : launch<float, true, false>(q, emb, mask, n_valid, B, N, D, tile_n, bins, smax, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return trivial ? launch2_typed<true>(is_bf16, q, emb, mask, n_valid, B, N, D, tile_n, bins,
+                                       smax, s)
+                 : launch2_typed<false>(is_bf16, q, emb, mask, n_valid, B, N, D, tile_n, bins,
+                                        smax, s);
 }
 
 extern "C" int ahrag_binmax(const void* q, const void* emb, const void* mask,
                             long long n_valid, int B, long long N, int D, int tile_n,
                             int is_bf16, void* out, void* stream) {
-  return is_bf16
-      ? launch<__nv_bfloat16, false, false>(q, emb, mask, n_valid, B, N, D, tile_n, out, nullptr, stream)
-      : launch<float, false, false>(q, emb, mask, n_valid, B, N, D, tile_n, out, nullptr, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? launch1<__nv_bfloat16>(q, emb, mask, n_valid, B, N, D, tile_n, out, s)
+                 : launch1<float>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
 }

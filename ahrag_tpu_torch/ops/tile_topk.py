@@ -10,6 +10,10 @@ top ``kk = min(k, tile_n)`` by ``kk`` passes of max / lowest arg-max / set to
 equal values. A stable top-k over the candidates in tile order then merges the
 tiles, so ties resolve to the lowest row.
 
+The kernel scores a 32-query chunk against each tile into a score tile in
+shared memory, bf16 products on the tensor cores (wgmma, fed by TMA) and
+float32 ones as IEEE FMA on register tiles, and then runs the selection
+passes over it.
 ``tile_topk`` launches the hand-written CUDA kernel (``csrc/tile_topk.cu``) for
 a CUDA tensor, counting the launch in its ``launches`` attribute, and takes the
 plain PyTorch version (``dense_topk_fused_ref``) only for a tensor on the CPU.
@@ -22,12 +26,44 @@ from typing import Tuple
 import torch
 
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
-from ahrag_tpu_torch.ops._build import launch_args
+from ahrag_tpu_torch.ops._build import SMEM_LIMIT, launch_args
 from ahrag_tpu_torch.ops.binmax import NEG_INF
 
-# dynamic shared memory a block may opt in to on Hopper (227 KB)
-_SMEM_LIMIT = 232448
-_KERNEL_QC = 16   # queries per block in csrc/tile_topk.cu
+
+def _smem(d: int, tile_n: int, is_bf16: bool, qc: int) -> int:
+    """An ``ahrag_tile_topk`` block at query chunk ``qc``: 1 KB of alignment
+    slack, a 4-stage ring, the [qc, tile_n + 4] float32 score tile and 9
+    barriers. A bf16 stage is 16 KB (128 corpus rows of one 128-byte box of
+    d) and the chunk stays resident (qc rows of 128 bytes per 64 elements of
+    d, rounded up); a float32 stage also holds the chunk's box (qc rows of
+    128 bytes), whatever d."""
+    score_tile = qc * (tile_n + 4) * 4
+    if is_bf16:
+        return 1024 + 4 * 16384 + -(-d // 64) * qc * 128 + score_tile + 9 * 8
+    return 1024 + 4 * (16384 + qc * 128) + score_tile + 9 * 8
+
+
+def tile_topk_chunk(d: int, tile_n: int, is_bf16: bool) -> int:
+    """Queries per ``ahrag_tile_topk`` block (``csrc/tile_topk.cu``): 32, or
+    16 where the shared memory of 32 does not suffice."""
+    return 32 if _smem(d, tile_n, is_bf16, 32) <= SMEM_LIMIT else 16
+
+
+def tile_topk_smem_bytes(d: int, tile_n: int, is_bf16: bool) -> int:
+    """Dynamic shared memory of one ``ahrag_tile_topk`` block at the chunk
+    ``tile_topk_chunk`` picks."""
+    return _smem(d, tile_n, is_bf16, tile_topk_chunk(d, tile_n, is_bf16))
+
+
+def _kernel_check(q: torch.Tensor, emb: torch.Tensor, tile_n: int) -> None:
+    """The shared-memory rule of ``ahrag_tile_topk`` beyond ``_check``'s:
+    raises ValueError before anything launches."""
+    D = emb.shape[1]
+    is_bf16 = emb.dtype == torch.bfloat16
+    if tile_topk_smem_bytes(D, tile_n, is_bf16) > SMEM_LIMIT:
+        raise ValueError(f"tile_n={tile_n} at D={D} needs "
+                         f"{tile_topk_smem_bytes(D, tile_n, is_bf16)} bytes of shared "
+                         f"memory, more than the {SMEM_LIMIT} a block has")
 
 
 def _check(q: torch.Tensor, emb: torch.Tensor, k: int, tile_n: int,
@@ -86,13 +122,9 @@ def tile_topk(q: torch.Tensor, emb: torch.Tensor, n_valid: int, k: int,
     _check(q, emb, k, tile_n, mask)
     if emb.device.type == "cpu":
         return dense_topk_fused_ref(q, emb, n_valid, k, tile_n, mask)
+    _kernel_check(q, emb, tile_n)
     B, N, D = q.shape[0], emb.shape[0], q.shape[1]
     kk = min(k, tile_n)
-    if N // tile_n > 65535:
-        raise ValueError("at most 65535 tiles per launch")
-    if _KERNEL_QC * (D + tile_n) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"tile_n={tile_n} at D={D} needs more shared memory than "
-                         "a block has")
     lib, is_bf16, stream = launch_args(q, emb, mask)
     vals = torch.empty((N // tile_n, B, kk), dtype=torch.float32, device=emb.device)
     idx = torch.empty((N // tile_n, B, kk), dtype=torch.int32, device=emb.device)

@@ -98,18 +98,26 @@ def matmul_eps(device: str, d: int, bf16_in: bool) -> float:
 
 @functools.lru_cache(maxsize=None)
 def binmax_eps(device: str, d: int, tile_n: int, bf16_in: bool) -> float:
-    """Coarse error band calibrated through the port's own bin-max kernel
+    """Coarse error band calibrated through the port's own bin-max kernels
     (``binmax_eps`` in the JAX package): with ``n_valid = 128`` exactly one row
-    is live per bin, so the kernel's bin maxima are its per-row scores,
-    compared one to one with a float64 ground truth. The re-score error is
-    measured the same way and added, with the same 8x margin and 1e-7 floor.
-    Cached per (device, d, tile_n, bf16_in): one small launch per process."""
+    is live per bin, so a kernel's bin maxima are its per-row scores, compared
+    one to one with a float64 ground truth. Both kernels are read, since they
+    sum in different orders (``dense_binmax2``, which the certified path's
+    coarse scores come from, on the tensor cores in bf16): ``dense_binmax`` on
+    64 queries and ``dense_binmax2`` on 128 queries of their own seeded draw,
+    over the same rows. The larger reading plus the re-score error, with the
+    same 8x margin and 1e-7 floor, is the band. Cached per (device, d, tile_n,
+    bf16_in): two small launches per process."""
     q, e = _calibration_inputs(device, d, tile_n, bf16_in)
-    bm = dense_binmax(q, e, 128, torch.ones(tile_n, dtype=torch.bool,
-                                            device=e.device), tile_n=tile_n)
-    true = q.double().cpu().numpy() @ e[:128].double().cpu().numpy().T
+    live = torch.ones(tile_n, dtype=torch.bool, device=e.device)
+    e128 = e[:128].double().cpu().numpy()
+    bm = dense_binmax(q, e, 128, live, tile_n=tile_n)
+    err = _max_err(bm[:, :128], q.double().cpu().numpy() @ e128.T)
+    q2 = torch.from_numpy(_unit_rows(np.random.default_rng(1), 128, d)).to(e.device, e.dtype)
+    bins2, _ = dense_binmax2(q2, e, 128, live, tile_n=tile_n)
+    err = max(err, _max_err(bins2[0], q2.double().cpu().numpy() @ e128.T))
     refine = f32_matmul(q, e[:128].T)
-    return 8.0 * (_max_err(bm[:, :128], true) + _max_err(refine, true)) + 1e-7
+    return 8.0 * (err + _max_err(refine, q.double().cpu().numpy() @ e128.T)) + 1e-7
 
 
 def _flush_tiny(s: torch.Tensor, eps: float) -> torch.Tensor:

@@ -190,3 +190,33 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         tops.dense_topk_fused(q, e, 1024, 3, mask=torch.ones(1024))
     with pytest.raises(ValueError, match="no CUDA kernel for device meta"):
         tops.dense_topk_fused(q.to("meta"), e.to("meta"), 1024, 3)
+
+
+@pytest.mark.parametrize("dtype,d,tile_n,match", [
+    (torch.bfloat16, 3080, 1024, "shared memory"),
+    (torch.float32, 384, 2688, "shared memory"),
+    (torch.bfloat16, 384, 1024, "no CUDA kernel for device meta"),
+    (torch.bfloat16, 200, 1024, "no CUDA kernel for device meta"),
+    (torch.bfloat16, 768, 1024, "no CUDA kernel for device meta"),
+    (torch.bfloat16, 384, 2048, "no CUDA kernel for device meta"),
+    (torch.float32, 200, 2048, "no CUDA kernel for device meta"),
+])
+def test_kernel_shape_rules_raise_before_launch(dtype, d, tile_n, match):
+    """The kernel's shared-memory rule raises ValueError on any non-CPU tensor
+    before the library is touched; shapes that meet it (any D % 8 == 0, the
+    16-query chunk where 32 queries do not fit) reach the device check."""
+    q = torch.zeros(4, d, dtype=dtype, device="meta")
+    e = torch.zeros(2 * tile_n, d, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match=match):
+        ttile.tile_topk(q, e, 2 * tile_n, 5, tile_n)
+
+
+@pytest.mark.parametrize("d,tile_n,is_bf16,chunk", [
+    (384, 1024, True, 32), (384, 1024, False, 32), (512, 1024, True, 32),
+    (520, 1024, True, 16), (384, 1152, False, 32), (384, 1280, False, 16),
+])
+def test_tile_topk_chunk_follows_shared_memory(d, tile_n, is_bf16, chunk):
+    """32 queries a block where their shared memory fits, else 16, and the
+    block's bytes within the opt-in limit either way."""
+    assert ttile.tile_topk_chunk(d, tile_n, is_bf16) == chunk
+    assert ttile.tile_topk_smem_bytes(d, tile_n, is_bf16) <= 232448

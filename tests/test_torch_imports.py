@@ -119,3 +119,16 @@ def test_no_try_in_the_port():
         tries = [n.lineno for n in ast.walk(ast.parse(path.read_text()))
                  if isinstance(n, (ast.Try, getattr(ast, "TryStar", ast.Try)))]
         assert not tries, f"{path.relative_to(ROOT)} has a try at lines {tries}"
+
+
+def test_signatures_match_the_cuda_launchers():
+    """``_build._SIGNATURES`` names every ``extern "C"`` launcher of
+    ``csrc/*.cu`` with its argument count, and nothing else."""
+    import re
+    from ahrag_tpu_torch.ops import _build
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([a for a in args.split(",") if a.strip()])
+    assert found, "no extern \"C\" launcher found"
+    assert {n: len(a) for n, a in _build._SIGNATURES.items()} == found

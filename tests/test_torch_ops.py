@@ -177,3 +177,51 @@ def test_eps_calibrations_are_small_and_positive(bf16_in):
     for e in (e1, e2):
         assert 1e-7 <= e < 1e-5
 
+
+
+def test_binmax_eps_reads_the_binmax2_kernel(monkeypatch):
+    """The band is calibrated through ``dense_binmax2`` (the certified path's
+    coarse kernel) as well as ``dense_binmax``: an error of 1e-4 in
+    ``dense_binmax2``'s bins alone carries the band past it, where
+    ``dense_binmax``'s reading would stay under 1e-5."""
+    offset = 1e-4
+    real = ttopk.dense_binmax2
+
+    def off_by(*args, **kwargs):
+        bins, smax = real(*args, **kwargs)
+        return bins + offset, smax + offset
+
+    ttopk.binmax_eps.cache_clear()
+    try:
+        clean = ttopk.binmax_eps("cpu", 64, 1024, False)
+        monkeypatch.setattr(ttopk, "dense_binmax2", off_by)
+        ttopk.binmax_eps.cache_clear()
+        shifted = ttopk.binmax_eps("cpu", 64, 1024, False)
+    finally:
+        ttopk.binmax_eps.cache_clear()
+    assert clean < 1e-5
+    assert shifted >= 8 * offset > clean
+
+
+def test_binmax2_kernel_shape_rules_raise_before_launch():
+    """The kernel's own rules (B % 128, the bf16 query chunk within shared
+    memory: 128 queries up to D = 576, then 32 up to D = 2560) raise
+    ValueError on any non-CPU tensor before the library is touched; any
+    D % 8 == 0 within them reaches the device check."""
+    mask = torch.ones(2048, dtype=torch.bool, device="meta")
+
+    def call(b, d, dtype):
+        q = torch.zeros(b, d, dtype=dtype, device="meta")
+        e = torch.zeros(2048, d, dtype=dtype, device="meta")
+        tbin.dense_binmax2(q, e, 2048, mask, tile_n=1024)
+
+    with pytest.raises(ValueError, match="B % 128"):
+        call(64, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        call(128, 2568, torch.bfloat16)
+    assert (tbin.binmax2_chunk(576), tbin.binmax2_chunk(584)) == (128, 32)
+    assert tbin.binmax2_smem_bytes(2560, True) <= 232448
+    for d, dtype in ((384, torch.bfloat16), (96, torch.bfloat16), (200, torch.bfloat16),
+                     (768, torch.bfloat16), (96, torch.float32), (200, torch.float32)):
+        with pytest.raises(ValueError, match="no CUDA kernel for device meta"):
+            call(128, d, dtype)      # every shape rule holds: the device check
