@@ -37,7 +37,7 @@ _LL = ctypes.c_longlong
 # name -> argtypes of the extern "C" launchers in csrc/*.cu
 _SIGNATURES = {
     "ahrag_binmax2": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
-    "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P],
+    "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P],
     "ahrag_tile_topk": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
 }
 

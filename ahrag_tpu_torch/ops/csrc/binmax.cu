@@ -16,28 +16,39 @@
 // bound is ~0.42 ms, set by compute on the tensor cores. In float32 (131k rows,
 // B = 1024 per chunk) it is 1.59 ms at 67 TFLOP/s on the CUDA cores.
 //
-// ahrag_binmax2 (the main path) runs on the TMA ring of common.cuh:
+// Both run on the TMA ring of common.cuh:
 //   - a persistent grid, one block per SM, works through the (query chunk,
 //     tile) items with the chunks of one tile taken up together, so that their
 //     requests for it can be served from L2 (not measured: no DRAM counter is
 //     read);
 //   - one producer warp streams 16 KB corpus stages (128 rows x one 128-byte box
-//     of D) through a 4-deep mbarrier ring;
-//   - bf16: the block's chunk of QC = 128 queries (32 where 128 of them do not
-//     fit, D > 576) stays resident as the wgmma N side; two consumer
-//     warpgroups each take 64 rows of a slice as the M side, QC / 2
+//     of D) through an mbarrier ring;
+//   - bf16: the block's query chunk stays resident as the wgmma N side; two
+//     consumer warpgroups each take 64 rows of a slice as the M side, QC / 2
 //     accumulators a thread;
-//   - float32: the chunk of 128 queries streams through the ring beside the
-//     corpus; each of the 256 consumer threads runs IEEE fmaf on a register
-//     tile of 8 rows x 8 queries, its running max in shared memory;
+//   - float32: the chunk streams through the ring beside the corpus; the 256
+//     consumer threads run IEEE fmaf on register tiles;
 //   - slice i's row r is bin r's i-th row, so the strided bin max is an
 //     elementwise fmaxf of the accumulators into a running-max fragment of the
-//     same layout, after masking by row: no score tile, no shuffles;
-//   - bins are stored from registers; the supermax is reduced by shuffles within
-//     a warp (and in bf16 through shared memory across the 8 consumer warps).
-// ahrag_binmax (queries not a multiple of 128; eps calibration): float32 FMA on the
-//   CUDA cores (score_row), one thread per bin, 32 queries a block. Not yet
-//   redesigned.
+//     same layout, after masking by row: no score tile, no shuffles.
+// ahrag_binmax2 (the main path; B % 128 == 0): a 4-stage ring; bf16 chunks of
+// QC = 128 queries (32 where 128 of them do not fit, D > 576); float32 chunks
+// of 128 on a register tile of 8 rows x 8 queries, its running max in shared
+// memory. Bins are stored from registers; the supermax is reduced by shuffles
+// within a warp (and in bf16 through shared memory across the 8 consumer warps).
+// ahrag_binmax (any B: the serving buckets 1-64, the eps calibration): bins
+// stored query-major, [B, T * 128], no supermax, on the same 4-stage ring. At
+// small B it is bound by bytes (1M bf16, B = 4: 819.5 MB of corpus + 1.1 MB of
+// mask + 2.1 MB of bins, 0.246 ms at 3.35 TB/s), so the corpus must stream from
+// HBM once: the query chunk is fitted to B (the wrapper's binmax_chunk: 8, 16,
+// 32, 64 or 128 queries in bf16, the wgmma N; up to 64 in float32), one chunk
+// covers B <= 64 and the blocks walk the tiles. float32 runs a register tile of
+// QC / 8 rows x 8 queries with each box of D split between a lane pair (QC <=
+// 32), so that each corpus float4 a thread reads serves 8 queries and the
+// shared-memory reads stay under the HBM time of a stage (at QC = 8 every
+// corpus float4 is read once), or 8 rows x 4 queries (QC = 64, bound by
+// operations: 6.64 GFLOP at 131k rows, B = 64, 0.099 ms at 67 TFLOP/s).
+// A ring of 8 stages measured no faster than these 4 (PERF.md).
 
 #include <stdint.h>
 
@@ -72,25 +83,15 @@ binmax2_bf16_kernel(const __grid_constant__ CUtensorMap emb_map,
     if (lane == 0) ring.produce(&emb_map, &q_map, D, tile_n, chunks, num_tiles);
     return;
   }
-  const int wg = warp >> 2;
   const int r0 = 16 * (warp & 3) + (lane >> 2);   // rows r0 and r0 + 8 of the warpgroup's 64
-  const int bin0 = 64 * wg + r0;
-  float acc[QC / 2], mx[QC / 2];
+  const int bin0 = 64 * (warp >> 2) + r0;
+  float mx[QC / 2];
   ahrag::mbar_wait(ring.qbar, 0);
 
   for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
     const int t = (int)(it / chunks);
-#pragma unroll
-    for (int x = 0; x < QC / 2; ++x) mx[x] = -INFINITY;
-    for (int i = 0; i < tile_n / kLanes; ++i) {
-      ahrag::bf16_slice(acc, ring, D);
-      const long long row = (long long)t * tile_n + kLanes * i + bin0;
-      const bool ok0 = kTrivial || (row < n_valid && mask[row] != 0);
-      const bool ok1 = kTrivial || (row + 8 < n_valid && mask[row + 8] != 0);
-#pragma unroll
-      for (int x = 0; x < QC / 2; ++x)
-        mx[x] = fmaxf(mx[x], ((x & 2) ? ok1 : ok0) ? acc[x] : kNegInf);
-    }
+    ahrag::bf16_tile_bins<kTrivial>(mx, ring, D, (long long)t * tile_n, tile_n, bin0, mask,
+                                    n_valid);
 
     // bins [T, B, 128]: register 4j + h is query 8j + 2 (lane % 4) + (h & 1),
     // bin bin0 + 8 (h >> 1)
@@ -207,44 +208,94 @@ binmax2_f32_kernel(const __grid_constant__ CUtensorMap emb_map,
   }
 }
 
-// ---- ahrag_binmax (score_row) ---------------------------------------------
+// ---- ahrag_binmax ------------------------------------------------------------
 
-constexpr int kQC = 32;          // queries per ahrag_binmax block
+// float32 register tile of ahrag_binmax at chunk QC: QC / 8 rows x 8 queries with
+// each box of D split between a lane pair (QC <= 32), else 8 rows x 4 queries.
+template <int QC>
+struct BinmaxF32 {
+  static constexpr int kRM = QC <= 32 ? QC / 8 : 8;
+  static constexpr int kKS = QC <= 32 ? 2 : 1;
+  using Tile = ahrag::F32Tile<QC, kRM, kKS>;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kLanes)
-binmax_kernel(const T* __restrict__ q, const T* __restrict__ emb,
-              const uint8_t* __restrict__ mask, long long n_valid, int B, int D,
-              int tile_n, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);          // [kQC][D]
-
-  const int j = threadIdx.x;
-  const int c0 = blockIdx.x * kQC;
-  const int t = blockIdx.y;
-  const int num_tiles = gridDim.y;
-
-  ahrag::stage_queries<kQC>(q, q_s, c0, B, D);
-  __syncthreads();
-
-  float best[kQC];
-#pragma unroll
-  for (int b = 0; b < kQC; ++b) best[b] = -INFINITY;
-
-  const int rows_per_lane = tile_n / kLanes;
-  for (int i = 0; i < rows_per_lane; ++i) {
-    const long long row = (long long)t * tile_n + j + (long long)kLanes * i;
-    float dot[kQC];
-    ahrag::score_row<kQC>(emb + row * D, q_s, D, dot);
-    const bool ok = row < n_valid && mask[row] != 0;
-#pragma unroll
-    for (int b = 0; b < kQC; ++b) best[b] = fmaxf(best[b], ok ? dot[b] : kNegInf);
+// bf16: the chunk resident, wgmma m64nQCk16, bf16_tile_bins' registers stored
+// query-major. float32: the chunk streamed, on BinmaxF32's register tile.
+template <typename T, int QC>
+__global__ void __launch_bounds__(ahrag::kRingThreads, 1)
+binmax_qmajor_kernel(const __grid_constant__ CUtensorMap emb_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const uint8_t* __restrict__ mask, long long n_valid, int B, int D,
+                     int tile_n, int num_tiles, float* __restrict__ out, int chunks) {
+  extern __shared__ uint8_t smem_raw[];
+  ahrag::Ring<T, QC> ring(smem_raw, D, 0);
+  ring.init();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == ahrag::kConsumers / 32) {           // producer warp
+    if (lane == 0) ring.produce(&emb_map, &q_map, D, tile_n, chunks, num_tiles);
+    return;
   }
+  const size_t ld = (size_t)num_tiles * kLanes;   // out [B, T * 128]
 
+  if constexpr (sizeof(T) == 2) {
+    const int c0 = (int)(blockIdx.x % chunks) * QC;   // fixed: gridDim.x % chunks == 0
+    const int bin0 = 64 * (warp >> 2) + 16 * (warp & 3) + (lane >> 2);
+    float mx[QC / 2];
+    ahrag::mbar_wait(ring.qbar, 0);
+    for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
+      const int t = (int)(it / chunks);
+      ahrag::bf16_tile_bins<false>(mx, ring, D, (long long)t * tile_n, tile_n, bin0, mask,
+                                   n_valid);
+      // register 4j + h is query 8j + 2 (lane % 4) + (h & 1), bin bin0 + 8 (h >> 1);
+      // queries past B (TMA's zero rows) are never stored
+      float* o = out + (size_t)t * kLanes + bin0;
 #pragma unroll
-  for (int b = 0; b < kQC; ++b)
-    if (c0 + b < B)
-      out[(size_t)(c0 + b) * num_tiles * kLanes + (size_t)t * kLanes + j] = best[b];   // [B, T*128]
+      for (int j = 0; j < QC / 8; ++j) {
+        const int b = c0 + 8 * j + 2 * (lane & 3);
+        if (b < B) {
+          o[b * ld] = mx[4 * j];
+          o[b * ld + 8] = mx[4 * j + 2];
+        }
+        if (b + 1 < B) {
+          o[(b + 1) * ld] = mx[4 * j + 1];
+          o[(b + 1) * ld + 8] = mx[4 * j + 3];
+        }
+      }
+    }
+  } else {
+    using Tile = typename BinmaxF32<QC>::Tile;
+    constexpr int kRM = BinmaxF32<QC>::kRM, kQN = Tile::kQN, kKS = BinmaxF32<QC>::kKS;
+    for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
+      const int c0 = (int)(it % chunks) * QC, t = (int)(it / chunks);
+      const long long base = (long long)t * tile_n;
+      float mx[kRM][kQN];
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kQN; ++j) mx[i][j] = -INFINITY;
+      for (int sl = 0; sl < tile_n / kLanes; ++sl) {
+        float acc[kRM][kQN];
+        ahrag::f32_slice<QC, kRM, kKS>(acc, ring, D);
+#pragma unroll
+        for (int i = 0; i < kRM; ++i) {
+          const long long row = base + (long long)kLanes * sl + Tile::row(i);
+          const bool ok = row < n_valid && mask[row] != 0;
+#pragma unroll
+          for (int j = 0; j < kQN; ++j) mx[i][j] = fmaxf(mx[i][j], ok ? acc[i][j] : kNegInf);
+        }
+      }
+      // with a split box both lanes of a pair hold the same maxima: lane kz
+      // stores the queries j with j % 2 == kz
+#pragma unroll
+      for (int j = 0; j < kQN; ++j) {
+        const int b = c0 + Tile::query(j);
+        if (j % kKS == Tile::split() && b < B) {
+#pragma unroll
+          for (int i = 0; i < kRM; ++i) out[b * ld + (size_t)t * kLanes + Tile::row(i)] = mx[i][j];
+        }
+      }
+    }
+  }
 }
 
 template <typename T, bool kTrivial, int QC, typename Kernel>
@@ -274,17 +325,31 @@ int launch2_typed(int is_bf16, const void* q, const void* emb, const void* mask,
                                      B, N, D, tile_n, red_bytes(32), bins, smax, s);
 }
 
-template <typename T>
+template <typename T, int QC>
 int launch1(const void* q, const void* emb, const void* mask, long long n_valid, int B,
             long long N, int D, int tile_n, void* out, cudaStream_t stream) {
-  const dim3 grid((B + kQC - 1) / kQC, (unsigned)(N / tile_n));
-  const size_t smem = (size_t)kQC * D * sizeof(float);
-  auto kern = binmax_kernel<T>;
-  const cudaError_t err = ahrag::opt_in(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kLanes, smem, stream>>>((const T*)q, (const T*)emb, (const uint8_t*)mask,
-                                       n_valid, B, D, tile_n, (float*)out);
-  return (int)cudaGetLastError();
+  const long long num_tiles = N / tile_n;
+  const size_t smem = ahrag::RingSmem<T, QC>::bytes(D, 0);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  return (int)ahrag::launch_ring<T, QC>(binmax_qmajor_kernel<T, QC>, q, emb, B, N, D, num_tiles,
+                                        smem, stream, (const uint8_t*)mask, n_valid, B, D,
+                                        tile_n, (int)num_tiles, (float*)out);
+}
+
+// The chunk qc: 8, 16, 32 or 64 queries, and in bf16 also 128.
+template <typename T>
+int launch1_chunk(int qc, const void* q, const void* emb, const void* mask, long long n_valid,
+                  int B, long long N, int D, int tile_n, void* out, cudaStream_t s) {
+  switch (qc) {
+    case 8: return launch1<T, 8>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+    case 16: return launch1<T, 16>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+    case 32: return launch1<T, 32>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+    case 64: return launch1<T, 64>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (qc == 128) return launch1<T, 128>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -306,10 +371,15 @@ extern "C" int ahrag_binmax2(const void* q, const void* emb, const void* mask,
                                         smax, s);
 }
 
+// ahrag_binmax: any B >= 1 in chunks of qc queries (the wrapper's binmax_chunk:
+// 8, 16, 32, 64 or 128 in bf16, 8 to 64 in float32), the block's shared
+// memory within what it may opt in to; any other qc, or a block that does not
+// fit, returns cudaErrorInvalidValue before anything launches.
 extern "C" int ahrag_binmax(const void* q, const void* emb, const void* mask,
-                            long long n_valid, int B, long long N, int D, int tile_n,
+                            long long n_valid, int B, long long N, int D, int tile_n, int qc,
                             int is_bf16, void* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch1<__nv_bfloat16>(q, emb, mask, n_valid, B, N, D, tile_n, out, s)
-                 : launch1<float>(q, emb, mask, n_valid, B, N, D, tile_n, out, s);
+  return is_bf16 ? launch1_chunk<__nv_bfloat16>(qc, q, emb, mask, n_valid, B, N, D, tile_n,
+                                                out, s)
+                 : launch1_chunk<float>(qc, q, emb, mask, n_valid, B, N, D, tile_n, out, s);
 }

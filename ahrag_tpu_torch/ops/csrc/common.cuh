@@ -1,15 +1,13 @@
 // Device helpers shared by the port's kernels (binmax.cu, tile_topk.cu).
 //
-// Every product loop is exact for its storage type up to summation order:
-//   - score_row: float32 fmaf over d on operands widened to float32, one corpus
-//     row per thread. Only ahrag_binmax still runs it.
-//   - the TMA ring (TMA loads into 128-byte-swizzled shared memory through
-//     mbarrier stages, one producer warp, a persistent grid) and its two
-//     consumers: bf16_slice, bf16 x bf16 products on the tensor cores (wgmma)
-//     with float32 accumulation, whose products are exact and whose sums the
-//     tensor core orders, with no score rounded to bf16 anywhere; and
-//     f32_slice, IEEE float32 fmaf in ascending d (score_row's order), no TF32,
-//     on register tiles.
+// Every kernel runs on the TMA ring (TMA loads into 128-byte-swizzled shared
+// memory through mbarrier stages, one producer warp, a persistent grid), and
+// every product loop is exact for its storage type up to summation order. The
+// ring has two consumers: bf16_slice, bf16 x bf16 products on the tensor cores
+// (wgmma) with float32 accumulation, whose products are exact and whose sums
+// the tensor core orders, with no score rounded to bf16 anywhere; and
+// f32_slice, IEEE float32 fmaf on register tiles, no TF32, in ascending d
+// (or in ascending d within each half of every box, the halves then added).
 
 #pragma once
 
@@ -23,63 +21,6 @@ namespace ahrag {
 constexpr float kNegInf = -1e30f;
 // dynamic shared memory a block may opt in to on Hopper (227 KB)
 constexpr size_t kSmemLimit = 232448;
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Widens queries c0 .. c0 + QC - 1 of q [B, D] into q_s [QC][D] in shared memory,
-// where every thread of a warp later reads the same address (a broadcast). Queries
-// past B stage as zeros: every thread then runs the same unrolled product loop,
-// and their results are never written. The caller synchronises afterwards.
-template <int QC, typename T>
-__device__ __forceinline__ void stage_queries(const T* __restrict__ q, float* q_s,
-                                              int c0, int B, int D) {
-  for (int x = threadIdx.x; x < QC * D; x += blockDim.x) {
-    const int b = x / D;
-    q_s[x] = (c0 + b < B) ? to_float(q[(size_t)(c0 + b) * D + (x - b * D)]) : 0.f;
-  }
-}
-
-// dot[b] = q_s[b] . e for the QC staged queries, D % 8 == 0, e 16-byte aligned.
-template <int QC, typename T>
-__device__ __forceinline__ void score_row(const T* __restrict__ e, const float* q_s,
-                                          int D, float (&dot)[QC]) {
-#pragma unroll
-  for (int b = 0; b < QC; ++b) dot[b] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += 8) {
-    float ev[8];
-    load8(e + d0, ev);
-#pragma unroll
-    for (int b = 0; b < QC; ++b) {
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + b * D + d0);
-      const float4 qb = *reinterpret_cast<const float4*>(q_s + b * D + d0 + 4);
-      float acc = dot[b];
-      acc = fmaf(ev[0], qa.x, acc);
-      acc = fmaf(ev[1], qa.y, acc);
-      acc = fmaf(ev[2], qa.z, acc);
-      acc = fmaf(ev[3], qa.w, acc);
-      acc = fmaf(ev[4], qb.x, acc);
-      acc = fmaf(ev[5], qb.y, acc);
-      acc = fmaf(ev[6], qb.z, acc);
-      acc = fmaf(ev[7], qb.w, acc);
-      dot[b] = acc;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The TMA ring: TMA loads into 128-byte-swizzled shared memory through an
@@ -229,13 +170,44 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[4] += A(64 x 16, smem desc) . B(16 x 8, smem desc)^T; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] += A(64 x 16, smem desc) . B(16 x 64, smem desc)^T; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64_t db,
                                           int scale_d) {
-  static_assert(N == 128 || N == 32 || N == 16, "wgmma N of 128, 32 or 16");
+  static_assert(N == 128 || N == 64 || N == 32 || N == 16 || N == 8,
+                "wgmma N of 128, 64, 32, 16 or 8");
   if constexpr (N == 128) wgmma_m64n128k16(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16(d, da, db, scale_d);
   else if constexpr (N == 32) wgmma_m64n32k16(d, da, db, scale_d);
-  else wgmma_m64n16k16(d, da, db, scale_d);
+  else if constexpr (N == 16) wgmma_m64n16k16(d, da, db, scale_d);
+  else wgmma_m64n8k16(d, da, db, scale_d);
 }
 
 // The ring's shape. A block has 8 consumer warps (threads 0-255: two wgmma
@@ -384,29 +356,58 @@ __device__ __forceinline__ void bf16_slice(float (&acc)[QC / 2], Ring<__nv_bfloa
   }
 }
 
-// float32 consumer: IEEE fmaf, in ascending d, of one 128-row slice against the
-// QC queries, on register tiles of RM rows x QN queries. Thread (tx = tid % TX,
-// ty = tid / TX) of the 256 consumers, TX = 128 / RM, owns rows tx + TX i
-// (i < RM) and queries ty + TY j (j < QN), TY = 256 / TX. Per 16-byte chunk of
-// a 128-byte row a thread loads RM float4 of its rows (the swizzle puts the 8
-// lanes of a load phase, rows of distinct r % 8, on distinct banks) and QN
-// float4 of its queries (shared by the lanes of one ty: a broadcast) for
-// 4 RM QN FMAs. Every consumer warp releases each stage.
-template <int QC, int RM>
+// bf16 bin maxima of one tile t: the tile's slices through bf16_slice, each
+// folded into mx (bf16_slice's register layout) after masking by row, since
+// slice i's row r is bin r's i-th row. Rows at or past n_valid or with mask 0
+// count as -1e30 unless kTrivial. The thread's bins are bin0 and bin0 + 8.
+template <bool kTrivial, int QC>
+__device__ __forceinline__ void bf16_tile_bins(float (&mx)[QC / 2],
+                                               Ring<__nv_bfloat16, QC>& ring, int D,
+                                               long long base, int tile_n, int bin0,
+                                               const uint8_t* __restrict__ mask,
+                                               long long n_valid) {
+  float acc[QC / 2];
+#pragma unroll
+  for (int x = 0; x < QC / 2; ++x) mx[x] = -INFINITY;
+  for (int i = 0; i < tile_n / kSliceRows; ++i) {
+    bf16_slice(acc, ring, D);
+    const long long row = base + kSliceRows * i + bin0;
+    const bool ok0 = kTrivial || (row < n_valid && mask[row] != 0);
+    const bool ok1 = kTrivial || (row + 8 < n_valid && mask[row + 8] != 0);
+#pragma unroll
+    for (int x = 0; x < QC / 2; ++x) mx[x] = fmaxf(mx[x], ((x & 2) ? ok1 : ok0) ? acc[x] : kNegInf);
+  }
+}
+
+// float32 consumer: IEEE fmaf of one 128-row slice against the QC queries, on
+// register tiles of RM rows x QN queries, each box of D split in KS parts (1 or
+// 2). Thread (kz = tid % KS, tx = tid / KS % TX, ty = tid / (KS TX)) of the 256
+// consumers, TX = 128 / RM, owns rows tx + TX i (i < RM), queries ty + TY j
+// (j < QN), TY = 256 / (KS TX), and the 16-byte chunks kz * 8 / KS ..
+// (kz + 1) * 8 / KS - 1 of every 128-byte box row, which it sums in ascending
+// d; with KS = 2 the lane pair's two partial sums are then added (one shuffle
+// per accumulator), so both lanes hold the score. Per chunk a thread loads RM
+// float4 of its rows (the swizzle puts the 8 lanes of a load phase, rows of
+// distinct r % 8 or distinct chunks, on distinct banks) and QN float4 of its
+// queries (shared by the lanes of one ty: a broadcast) for 4 RM QN FMAs. Every
+// consumer warp releases each stage.
+template <int QC, int RM, int KS = 1>
 struct F32Tile {
+  static_assert(KS == 1 || KS == 2, "a box split in 1 or 2 parts");
   static constexpr int kTX = kSliceRows / RM;
-  static constexpr int kTY = kConsumers / kTX;
+  static constexpr int kTY = kConsumers / (KS * kTX);
   static constexpr int kQN = QC / kTY;
-  static_assert(kQN >= 1 && kQN * kTY == QC, "QC a multiple of 256 / TX");
-  static __device__ int row(int i) { return (int)(threadIdx.x % kTX) + kTX * i; }
-  static __device__ int query(int j) { return (int)(threadIdx.x / kTX) + kTY * j; }
+  static_assert(kQN >= 1 && kQN * kTY == QC, "QC a multiple of 256 / (KS TX)");
+  static __device__ int split() { return (int)(threadIdx.x % KS); }
+  static __device__ int row(int i) { return (int)(threadIdx.x / KS % kTX) + kTX * i; }
+  static __device__ int query(int j) { return (int)(threadIdx.x / (KS * kTX)) + kTY * j; }
 };
 
-template <int QC, int RM>
-__device__ __forceinline__ void f32_slice(float (&acc)[RM][F32Tile<QC, RM>::kQN],
+template <int QC, int RM, int KS = 1>
+__device__ __forceinline__ void f32_slice(float (&acc)[RM][F32Tile<QC, RM, KS>::kQN],
                                           Ring<float, QC>& ring, int D) {
-  using Tile = F32Tile<QC, RM>;
-  const int tx = threadIdx.x % Tile::kTX, ty = threadIdx.x / Tile::kTX;
+  using Tile = F32Tile<QC, RM, KS>;
+  const int kz = Tile::split(), tx = Tile::row(0), ty = Tile::query(0);
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -417,7 +418,8 @@ __device__ __forceinline__ void f32_slice(float (&acc)[RM][F32Tile<QC, RM>::kQN]
     const float* A = reinterpret_cast<const float*>(ring.current());
     const float* Bq = reinterpret_cast<const float*>(ring.queries(kb));
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int cs = 0; cs < 8 / KS; ++cs) {
+      const int c = kz * (8 / KS) + cs;
       float4 a[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
@@ -440,6 +442,13 @@ __device__ __forceinline__ void f32_slice(float (&acc)[RM][F32Tile<QC, RM>::kQN]
       }
     }
     ring.release_and_advance();
+  }
+  if constexpr (KS == 2) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < Tile::kQN; ++j)
+        acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 1);
   }
 }
 

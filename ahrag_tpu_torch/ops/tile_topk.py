@@ -27,20 +27,13 @@ import torch
 
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
 from ahrag_tpu_torch.ops._build import SMEM_LIMIT, launch_args
-from ahrag_tpu_torch.ops.binmax import NEG_INF
+from ahrag_tpu_torch.ops.binmax import NEG_INF, ring_smem_bytes
 
 
 def _smem(d: int, tile_n: int, is_bf16: bool, qc: int) -> int:
-    """An ``ahrag_tile_topk`` block at query chunk ``qc``: 1 KB of alignment
-    slack, a 4-stage ring, the [qc, tile_n + 4] float32 score tile and 9
-    barriers. A bf16 stage is 16 KB (128 corpus rows of one 128-byte box of
-    d) and the chunk stays resident (qc rows of 128 bytes per 64 elements of
-    d, rounded up); a float32 stage also holds the chunk's box (qc rows of
-    128 bytes), whatever d."""
-    score_tile = qc * (tile_n + 4) * 4
-    if is_bf16:
-        return 1024 + 4 * 16384 + -(-d // 64) * qc * 128 + score_tile + 9 * 8
-    return 1024 + 4 * (16384 + qc * 128) + score_tile + 9 * 8
+    """An ``ahrag_tile_topk`` block at query chunk ``qc``: the ring's bytes
+    with the [qc, tile_n + 4] float32 score tile as the kernel's own area."""
+    return ring_smem_bytes(d, qc, is_bf16, qc * (tile_n + 4) * 4)
 
 
 def tile_topk_chunk(d: int, tile_n: int, is_bf16: bool) -> int:

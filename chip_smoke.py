@@ -12,13 +12,18 @@ print their wall time:
      registers and spills per kernel, each block's dynamic shared memory at
      the main-path shapes and, from ``cuobjdump -sass``, each kernel's HGMMA
      and FFMA counts, and fails unless every bf16 instantiation of
-     ``ahrag_binmax2`` and ``ahrag_tile_topk`` runs HGMMA (wgmma);
+     ``ahrag_binmax2``, ``ahrag_binmax`` and ``ahrag_tile_topk`` runs HGMMA
+     (wgmma);
   2. holds each kernel against its plain PyTorch version on the card: the
      bin-max kernels in bf16 and float32, masked and trivial, D = 384, 6
      tiles, n_valid short of N, one fully masked tile, ``dense_binmax2`` at
      B 128/512 on exact inputs (equal bins) and unit vectors, with a
      bf16-rounding control that must fail the limit, and on exact inputs at
      D = 200 (a partial 64-element box) and 768 (32-query chunks in bf16);
+     ``dense_binmax`` on unit vectors at B 1/4/5/16/20/64/100/128/200 (with its
+     own bf16-rounding control) and on exact inputs (equal bins) over both
+     types, B 1/4/5/16/20/64/100/128/200 (every query chunk), tile_n 1024 and
+     4096, D 200/384/768, n_valid short of N and one fully masked tile;
      the tile top-k kernel over both types, tile_n 256/512/1024,
      B 1/5/128, k 1/5/10 and k = tile_n (B 5 and 128), a partial n_valid, a
      random mask with one fully masked tile, on exact inputs (ids and values
@@ -47,7 +52,9 @@ and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
 main-path shapes, bounds, launch counts, errors, achieved TFLOP/s, share of
 the bound, ``binmax_eps`` per type; the float32 shapes of ``binmax2`` and
-``tile_topk`` under ``"float32"``), the card's name and power limit, and last the
+``tile_topk`` under ``"float32"``, ``binmax``'s 1M bf16 B = 64 and 131k f32
+B = 64 shapes under ``"bfloat16 B=64"`` and ``"float32 B=64"``), the card's
+name and power limit, and last the
 contract line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero. Without a CUDA device it exits non-zero at once.
 """
@@ -73,6 +80,9 @@ TOL = {"bfloat16": 2e-6, "float32": 1e-5}   # bf16 products are exact: only summ
 # in bf16 as in float32. A kernel that rounds its scores to bf16 reads far
 # above this limit; phase 2 measures both and checks that the limit parts them.
 TOPK_TOL = 1e-5
+# dense_binmax's batches in phase 2: every query chunk (8 to 128 in bf16, 8 to
+# 64 in float32), a partial last chunk and several chunks
+BINMAX_BATCHES = (1, 4, 5, 16, 20, 64, 100, 128, 200)
 SAMPLES = Path(__file__).resolve().parent / "samples"
 
 _T0 = time.perf_counter()
@@ -118,9 +128,10 @@ def kernel_report(info: dict) -> dict:
     kernel's count of HGMMA (wgmma) and FFMA instructions from ``cuobjdump
     -sass`` of the built library, by names that ``cu++filt`` (both beside
     ``nvcc``) demangles. Fails unless every bf16 instantiation of
-    ``ahrag_binmax2`` and ``ahrag_tile_topk`` (``binmax2_bf16_kernel<...>``
-    and ``tile_topk_kernel<__nv_bfloat16, ...>``, one per query chunk) runs
-    HGMMA."""
+    ``ahrag_binmax2``, ``ahrag_binmax`` and ``ahrag_tile_topk``
+    (``binmax2_bf16_kernel<...>``, ``binmax_qmajor_kernel<__nv_bfloat16, ...>`` and
+    ``tile_topk_kernel<__nv_bfloat16, ...>``, one per query chunk and, for
+    binmax2, per mask kind: 4 + 5 + 2) runs HGMMA."""
     import os
     import re
     from ahrag_tpu_torch.ops import _build
@@ -150,8 +161,10 @@ def kernel_report(info: dict) -> dict:
             lds=len(re.findall(r"\bLDS\b", block)),
             ld_generic=len(re.findall(r"\bLD\.", block)) + len(re.findall(r"\bLD\s", block)))
     bf16 = {k: v for k, v in report.items()
-            if k.startswith(("binmax2_bf16_kernel<", "tile_topk_kernel<__nv_bfloat16"))}
-    check(len(bf16) == 6, f"six bf16 instantiations of binmax2 and tile_topk: {sorted(bf16)}")
+            if k.startswith(("binmax2_bf16_kernel<", "binmax_qmajor_kernel<__nv_bfloat16",
+                             "tile_topk_kernel<__nv_bfloat16"))}
+    check(len(bf16) == 11, f"eleven bf16 instantiations of binmax2, binmax and tile_topk: "
+          f"{sorted(bf16)}")
     for name, r in bf16.items():
         check(r.get("hgmma", 0) > 0, f"{name} runs no HGMMA: {r}")
     return report
@@ -212,10 +225,10 @@ def phase_kernels_vs_plain(dev) -> dict:
     float32-exact sum in any order, so bins and supermax must be equal) and on
     unit vectors (within ``TOL``), with a control (the plain bins rounded to
     bf16, as a kernel that kept bf16 scores would give) that must read above
-    ``TOL``; ``dense_binmax`` at B 5, 16 and 128 on unit vectors. Then
-    ``dense_binmax2`` on exact inputs at D = 200 (the last 64-element box
-    partly past D, zero-filled) and D = 768 (32-query chunks in bf16), both
-    types, masked and trivial."""
+    ``TOL``; ``dense_binmax`` at B 1, 4, 5, 16, 20, 64, 100, 128 and 200 on unit
+    vectors, with its own control. Then ``dense_binmax2`` on exact inputs at
+    D = 200 (the last 64-element box partly past D, zero-filled) and D = 768
+    (32-query chunks in bf16), both types, masked and trivial."""
     import torch
     from ahrag_tpu_torch.ops.binmax import (dense_binmax, dense_binmax2,
                                             dense_binmax2_ref, dense_binmax_ref)
@@ -223,6 +236,7 @@ def phase_kernels_vs_plain(dev) -> dict:
     n, d, tile_n = 6 * 1024, 384, 1024
     err = {"binmax2_cuda": 0.0, "binmax_cuda": 0.0}
     control = 0.0
+    control1 = 0.0          # dense_binmax's
 
     def draw(rows, family, dim=d):
         if family == "exact":
@@ -255,13 +269,17 @@ def phase_kernels_vs_plain(dev) -> dict:
                     control = max(control, (rb.to(torch.bfloat16).float() - rb)[live]
                                   .abs().max().item())
         if family == "unit":
-            for b in (5, 16, 128):
+            for b in BINMAX_BATCHES:
                 q = draw(b, family).to(dev, dtype)
                 out = dense_binmax(q, emb, n_valid, mask, tile_n)
-                e = (out - dense_binmax_ref(q, emb, n_valid, mask, tile_n)).abs().max().item()
+                ref = dense_binmax_ref(q, emb, n_valid, mask, tile_n)
+                e = (out - ref).abs().max().item()
                 log(f"  binmax {dtype} B={b}: max|kernel-plain| {e:.3e}")
                 check(e <= tol, f"binmax {dtype} B={b} err {e} > {tol}")
                 err["binmax_cuda"] = max(err["binmax_cuda"], e)
+                live = ref > -1e29
+                control1 = max(control1, (ref.to(torch.bfloat16).float() - ref)[live]
+                               .abs().max().item())
     for dtype, dim in itertools.product((torch.bfloat16, torch.float32), (200, 768)):
         emb = draw(n, "exact", dim).to(dev, dtype)
         mask = torch.rand(n, generator=gen) > 0.2
@@ -280,7 +298,44 @@ def phase_kernels_vs_plain(dev) -> dict:
         f"{json.dumps(TOL)}; control (plain bins rounded to bf16) {control:.3e}")
     check(control > max(TOL.values()), f"the bf16-rounding control ({control}) passes the "
           f"limits {TOL}")
+    log(f"  binmax: unit vectors {err['binmax_cuda']:.3e} against {json.dumps(TOL)}; control "
+        f"(plain bins rounded to bf16) {control1:.3e}")
+    check(control1 > max(TOL.values()), f"binmax's bf16-rounding control ({control1}) passes "
+          f"the limits {TOL}")
     return err
+
+
+def phase_binmax_exact(dev) -> None:
+    """``dense_binmax`` against its plain version on exact inputs (halves in
+    [-1, 1]: every score is a float32-exact sum in any order, so the bins must
+    be equal) over both types, B 1/4/5/16/20/64/100/128/200 (every query chunk,
+    a partial last chunk, two chunks of 128 in bf16 and up to four of 64 in
+    float32), tile_n 1024 and 4096, and D = 200 (a partial box), 384 and 768
+    (64-query chunks in bf16 above B = 64): 12,288 rows, n_valid short of N,
+    a random mask with tile 1 fully masked."""
+    import torch
+    from ahrag_tpu_torch.ops.binmax import binmax_chunk, dense_binmax, dense_binmax_ref
+    gen = torch.Generator().manual_seed(2)
+    n, cases, chunks = 12288, 0, set()
+    for dtype, dim in itertools.product((torch.bfloat16, torch.float32), (200, 384, 768)):
+        emb = (torch.randint(-2, 3, (n, dim), generator=gen) / 2.0).to(dev, dtype)
+        for tile_n in (1024, 4096):
+            mask = torch.rand(n, generator=gen) > 0.2
+            mask[tile_n:2 * tile_n] = False
+            mask = mask.to(dev)
+            for b in BINMAX_BATCHES:
+                q = (torch.randint(-2, 3, (b, dim), generator=gen) / 2.0).to(dev, dtype)
+                out = dense_binmax(q, emb, n - 300, mask, tile_n)
+                ref = dense_binmax_ref(q, emb, n - 300, mask, tile_n)
+                what = f"binmax {dtype} exact D={dim} tile_n={tile_n} B={b}"
+                e = (out - ref).abs().max().item()
+                check(out.shape == ref.shape and e == 0.0, f"{what}: err {e}")
+                check(bool((out[:, 128:256] == -1e30).all()), f"{what}: the fully masked tile")
+                chunks.add((str(dtype).split(".")[1],
+                            binmax_chunk(b, dim, dtype == torch.bfloat16)))
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"  binmax: exact inputs equal in {cases} cases, query chunks {sorted(chunks)}")
 
 
 def phase_tile_topk_vs_plain(dev) -> dict:
@@ -658,7 +713,8 @@ def main() -> int:
     log(f"phase 1: kernels built in {info['seconds']:.1f}s (built={info['built']}) "
         f"-> {info['path']}; native featurizer built in {native_info['seconds']:.1f}s "
         f"(built={native_info['built']}) -> {native_info['path']}")
-    from ahrag_tpu_torch.ops.binmax import binmax2_chunk, binmax2_smem_bytes
+    from ahrag_tpu_torch.ops.binmax import (binmax2_chunk, binmax2_smem_bytes, binmax_chunk,
+                                            ring_smem_bytes)
     from ahrag_tpu_torch.ops.tile_topk import tile_topk_chunk, tile_topk_smem_bytes
     for name, r in kernel_report(info).items():
         log(f"  {name}: {json.dumps(r)}")
@@ -669,10 +725,13 @@ def main() -> int:
             tile_topk_smem_bytes(384, 1024, True),
         f"tile_topk float32 (chunk {tile_topk_chunk(384, 1024, False)})":
             tile_topk_smem_bytes(384, 1024, False),
-        "binmax (chunk 32)": 32 * 384 * 4}))
+        **{f"binmax {t} B={b} (chunk {binmax_chunk(b, 384, t == 'bf16')})":
+           ring_smem_bytes(384, binmax_chunk(b, 384, t == "bf16"), t == "bf16")
+           for t, b in (("bf16", 4), ("bf16", 64), ("float32", 64))}}))
 
     t = time.perf_counter()
     errs = phase_kernels_vs_plain(dev)
+    phase_binmax_exact(dev)
     errs.update(phase_tile_topk_vs_plain(dev))
     log(f"phase 2: kernels vs plain done in {time.perf_counter() - t:.1f}s: {errs}")
     t = time.perf_counter()
@@ -692,14 +751,20 @@ def main() -> int:
         2.0 * 512 * n * d,
         n * d * 2 + 512 * d * 2 + (0 if trivial else n) + tiles * 512 * 128 * 4 + 512 * tiles * 4,
         "bfloat16", reps=10)
-    q4 = q[:4].contiguous()
-    rows["binmax_cuda"] = kernel_row(
-        "binmax_cuda",
-        lambda: dense_binmax(q4, gt.emb, n, mask, 1024),
-        lambda: dense_binmax_ref(q4, gt.emb, n, mask, 1024),
-        lambda: torch.matmul(q4, gt.emb.T).view(4, tiles, 8, 128).amax(2),
-        2.0 * 4 * n * d, n * d * 2 + 4 * d * 2 + n + 4 * tiles * 128 * 4,
-        "bfloat16", reps=20)
+    def binmax_row(name, qb, emb, m, dtype, reps):
+        """``dense_binmax`` at tile_n 1024 on a masked corpus: its row."""
+        b, nn, es = qb.shape[0], emb.shape[0], emb.element_size()
+        t = nn // 1024
+        return kernel_row(
+            name, lambda: dense_binmax(qb, emb, nn, m, 1024),
+            lambda: dense_binmax_ref(qb, emb, nn, m, 1024),
+            lambda: torch.matmul(qb, emb.T).view(b, t, 8, 128).amax(2),
+            2.0 * b * nn * d, nn * d * es + b * d * es + nn + b * t * 128 * 4, dtype, reps)
+
+    rows["binmax_cuda"] = binmax_row("binmax_cuda", q[:4].contiguous(), gt.emb, mask,
+                                     "bfloat16", 20)
+    rows["binmax_cuda"]["bfloat16 B=64"] = binmax_row(
+        "binmax_cuda bf16 B=64", q[:64].contiguous(), gt.emb, mask, "bfloat16", 20)
     log(f"phase 3 done in {time.perf_counter() - t:.1f}s; kernel rows {json.dumps(rows)}")
 
     t = time.perf_counter()
@@ -717,8 +782,11 @@ def main() -> int:
         2.0 * 1024 * n2 * d,
         n2 * d * 4 + 1024 * d * 4 + t2 * 1024 * 128 * 4 + 1024 * t2 * 4,
         "float32", reps=10)
+    rows["binmax_cuda"]["float32 B=64"] = binmax_row(
+        "binmax_cuda f32 B=64", r2["q_dev"][:64].contiguous(), gt2.emb, mask2, "float32", 20)
     log(f"phase 4 done in {time.perf_counter() - t:.1f}s; binmax2 at the f32 "
-        f"chunk shape (B=1024, n_pad {n2}): {json.dumps(f32_row)}")
+        f"chunk shape (B=1024, n_pad {n2}): {json.dumps(f32_row)}; binmax at B=64: "
+        f"{json.dumps(rows['binmax_cuda']['float32 B=64'])}")
 
     t = time.perf_counter()
     log("phase 5: flat exact top-k through dense_topk, 1M bf16 B=512 and 131k f32 B=2048")
@@ -799,6 +867,8 @@ def main() -> int:
     # (binmax2 chunks of 128, tile_topk of 32); how much of it HBM serves is
     # not measured
     log("corpus bytes requested per launch (design count, not a DRAM reading): " + json.dumps({
+        "binmax 1M bf16 B=4 and B=64": n * d * 2,
+        "binmax 131k f32 B=64": n2 * d * 4,
         "binmax2 1M bf16 B=512": n * d * 2 * (512 // 128),
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),

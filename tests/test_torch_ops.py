@@ -57,15 +57,28 @@ def test_binmax2_ref_matches_pallas(dtype, trivial, tile_n):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b", [5, 16, 128])
-def test_binmax_ref_matches_pallas(dtype, b):
-    jq, tq, je, te, jm, tm = _inputs(2048, 64, b, 2, dtype)
-    n_valid = 2048 - 130
-    jout = jtopk.dense_binmax_pallas(jq, je, jnp.int32(n_valid), jm, tile_n=1024,
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 64, 100, 128, 200])
+@pytest.mark.parametrize("tile_n", [1024, 2048, 4096])
+def test_binmax_ref_matches_pallas(dtype, b, tile_n):
+    jq, tq, je, te, jm, tm = _inputs(8192, 64, b, 2, dtype)
+    n_valid = 8192 - 130
+    jout = jtopk.dense_binmax_pallas(jq, je, jnp.int32(n_valid), jm, tile_n=tile_n,
                                      interpret=True)
-    tout = tbin.dense_binmax(tq, te, n_valid, tm, tile_n=1024)
+    tout = tbin.dense_binmax(tq, te, n_valid, tm, tile_n=tile_n)
     assert tout.shape == jout.shape
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_binmax_default_tile_matches_pallas(dtype):
+    """Called without tile_n, both packages tile by 4096 rows: the same
+    [B, N / 32] bins."""
+    jq, tq, je, te, jm, tm = _inputs(8192, 64, 5, 8, dtype)
+    jout = jtopk.dense_binmax_pallas(jq, je, jnp.int32(8000), jm, interpret=True)
+    tout = tbin.dense_binmax(tq, te, 8000, tm)
+    assert tout.shape == jout.shape == (5, 8192 // 32)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=1e-6)
+    assert tbin.dense_binmax_ref(tq, te, 8000, tm).shape == (5, 8192 // 32)
 
 
 def test_binmax_wrappers_reject_bad_input():
@@ -76,15 +89,16 @@ def test_binmax_wrappers_reject_bad_input():
         tbin.dense_binmax(q, e[:2000], 2000, torch.ones(2000, dtype=torch.bool))
     with pytest.raises(TypeError):
         tbin.dense_binmax(q.double(), e.double(), 2048,
-                          torch.ones(2048, dtype=torch.bool))
+                          torch.ones(2048, dtype=torch.bool), tile_n=1024)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b", [128, 5])
+@pytest.mark.parametrize("b", [128, 5, 64])
 @pytest.mark.parametrize("binpack", [False, True])
 def test_binned_hier_matches_jax(dtype, b, binpack):
-    """hier-v2 (B % 128 == 0) and hier-v1, with and without the bin-packed
-    candidate copy, through the plain versions."""
+    """hier-v2 (B % 128 == 0) and hier-v1 (B 5, and 64, the largest serving
+    bucket below 128), with and without the bin-packed candidate copy,
+    through the plain versions."""
     n, d = 4096, 64
     jq, tq, je, te, jm, tm = _inputs(n, d, b, 3, dtype)
     jpack = tpack = None
@@ -225,3 +239,44 @@ def test_binmax2_kernel_shape_rules_raise_before_launch():
                      (768, torch.bfloat16), (96, torch.float32), (200, torch.float32)):
         with pytest.raises(ValueError, match="no CUDA kernel for device meta"):
             call(128, d, dtype)      # every shape rule holds: the device check
+
+
+def test_binmax_kernel_shape_rules_raise_before_launch():
+    """``dense_binmax``'s kernel rules (D % 8, the bf16 query chunk within
+    shared memory) raise ValueError on any non-CPU tensor before the library
+    is touched; any B and any D % 8 == 0 within them reach the device check,
+    and an empty batch returns its empty bins without a launch."""
+    mask = torch.ones(8192, dtype=torch.bool, device="meta")
+
+    def call(b, d, dtype, tile_n=4096):
+        q = torch.zeros(b, d, dtype=dtype, device="meta")
+        e = torch.zeros(8192, d, dtype=dtype, device="meta")
+        return tbin.dense_binmax(q, e, 8192, mask, tile_n=tile_n)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="D % 8"):
+            call(4, 100, dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        call(1, 10368, torch.bfloat16)         # 8 resident queries past the limit
+    assert tbin.ring_smem_bytes(10304, 8, True) <= 232448
+    assert call(0, 384, torch.bfloat16).shape == (0, 256)
+    for b, d, dtype, tile_n in ((1, 384, torch.bfloat16, 1024), (4, 10304, torch.bfloat16, 4096),
+                                (200, 768, torch.bfloat16, 2048), (64, 8, torch.float32, 4096),
+                                (5, 6336, torch.float32, 1024), (200, 200, torch.float32, 4096)):
+        with pytest.raises(ValueError, match="no CUDA kernel for device meta"):
+            call(b, d, dtype, tile_n)       # every shape rule holds: the device check
+
+
+@pytest.mark.parametrize("b, d, is_bf16, chunk", [
+    (1, 384, True, 8), (4, 384, True, 8), (8, 384, True, 8), (9, 384, True, 16),
+    (16, 384, True, 16), (17, 384, True, 32), (64, 384, True, 64), (65, 384, True, 128),
+    (100, 384, True, 128), (200, 384, True, 128), (128, 640, True, 128), (128, 648, True, 64),
+    (200, 768, True, 64), (200, 1288, True, 32), (64, 2568, True, 16), (4, 10304, True, 8),
+    (1, 384, False, 8), (16, 384, False, 16), (20, 384, False, 32), (64, 384, False, 64),
+    (200, 384, False, 64), (200, 6336, False, 64)])
+def test_binmax_chunk_follows_batch_and_shared_memory(b, d, is_bf16, chunk):
+    """The smallest chunk that holds the batch (bf16 up to 128, the wgmma N;
+    float32 up to 64), halved in bf16 while the resident chunk does not fit,
+    and the block's bytes within the opt-in limit either way."""
+    assert tbin.binmax_chunk(b, d, is_bf16) == chunk
+    assert tbin.ring_smem_bytes(d, chunk, is_bf16) <= 232448
