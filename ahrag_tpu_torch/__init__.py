@@ -10,8 +10,13 @@ and nothing of ``ahrag_tpu``.
     ahrag_tpu_torch.ops.topk             certified exact top-k around those kernels
     ahrag_tpu_torch.graph.tensors        GraphTensors and build_graph_tensors
     ahrag_tpu_torch.graph.search         batched hybrid search
+    ahrag_tpu_torch.graph.host           HierarchicalGraph: build, save/load, index, search
+    ahrag_tpu_torch.graph.beam           multi-level beam-search traversal
     ahrag_tpu_torch.models.encoder.hashed  hashed n-gram query encoder
-    ahrag_tpu_torch.serve                fused query encode + search
+    ahrag_tpu_torch.serve                fused query encode + search, MicroBatcher,
+                                         RetrievalService, serve_http
+    ahrag_tpu_torch.utils                config loader, timers and profiler traces
+    ahrag_tpu_torch.cli                  serve (HTTP) and serve_bench (load test)
     ahrag_tpu_torch.bench_data           synthetic bench corpus and CPU reference search
     ahrag_tpu_torch.convert              state carried across from ``ahrag_tpu`` as numpy
 
@@ -20,3 +25,14 @@ passes ``device="cpu"``; with no card they raise rather than fall back.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level exports, as ``ahrag_tpu`` has them."""
+    if name == "HierarchicalGraph":
+        from ahrag_tpu_torch.graph import HierarchicalGraph
+        return HierarchicalGraph
+    if name == "RetrievalService":
+        from ahrag_tpu_torch.serve import RetrievalService
+        return RetrievalService
+    raise AttributeError(name)

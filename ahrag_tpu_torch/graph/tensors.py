@@ -14,6 +14,7 @@ held as torch tensors on one device.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
@@ -94,6 +95,14 @@ def _ell(adj, n_pad: int, min_k: int = 8) -> np.ndarray:
     return out
 
 
+def wants_binpack(dev: torch.device, n: int, n_pad: int) -> bool:
+    """Whether ``build_graph_tensors`` builds ``emb_binpack``: where the binned
+    seed stage runs its kernel (the card, as the TPU in the JAX package) at
+    tile_n 1024 on 65,536 nodes or more, unless ``AHRAG_BINPACK=0``."""
+    return (dev.type == "cuda" and n_pad % 1024 == 0 and n >= 65536
+            and os.environ.get("AHRAG_BINPACK", "1") != "0")
+
+
 def build_graph_tensors(
     *,
     embeddings: np.ndarray,                 # [N, D] normalized
@@ -108,18 +117,22 @@ def build_graph_tensors(
     hyperedges: Dict[int, List[int]] | np.ndarray,
     members: Dict[int, List[int]] | np.ndarray,
     n_edges: int = 0,
-    emb_dtype: str = "float32",
+    emb_dtype: str | None = None,
     pack_children: bool | None = None,
     device: str | torch.device | None = None,
 ) -> GraphTensors:
     """Assemble device tensors from host-side (integer-indexed) graph data.
 
     ``emb_dtype`` ("float32" or "bfloat16") is the embedding matrix's storage
-    type. Scores over bf16 storage are exact with respect to the rounded
-    corpus. ``judges``/``confs`` are sequences with None for "no value", or
-    float arrays with NaN. ``pack_children`` defaults to on for n >= 4096.
+    type; when it is None, ``AHRAG_EMB_DTYPE`` chooses, float32 by default.
+    Scores over bf16 storage are exact with respect to the rounded corpus.
+    ``judges``/``confs`` are sequences with None for "no value", or float
+    arrays with NaN. ``pack_children`` defaults to on for n >= 4096 unless
+    ``AHRAG_PACK_CHILDREN=0``; ``AHRAG_BINPACK=0`` drops ``emb_binpack``.
+    These are the JAX package's switches, read at the same points.
     ``device`` defaults to ``cuda``."""
     dev = resolve_device(device)
+    emb_dtype = emb_dtype or os.environ.get("AHRAG_EMB_DTYPE", "float32")
     n = len(node_types)
     if embeddings.shape[0] != n:
         raise ValueError(f"{embeddings.shape[0]} embeddings for {n} nodes")
@@ -162,7 +175,7 @@ def build_graph_tensors(
     store_dtype = torch.bfloat16 if emb_dtype == "bfloat16" else torch.float32
     ch_ell = _ell(children, n_pad)
     if pack_children is None:
-        pack_children = n >= 4096
+        pack_children = n >= 4096 and os.environ.get("AHRAG_PACK_CHILDREN", "1") != "0"
     pack_nodes = (np.nonzero(ch_ell[:, 0] >= 0)[0] if pack_children
                   else np.zeros(0, np.int64))
 
@@ -190,7 +203,7 @@ def build_graph_tensors(
     # (tile, lane) of tile_n = 1024 holds rows {tile*1024 + lane + 128*i};
     # this permutation stores each bin's 8 rows contiguously.
     emb_binpack = None
-    if dev.type == "cuda" and n_pad % 1024 == 0 and n >= 65536:
+    if wants_binpack(dev, n, n_pad):
         t = n_pad // 1024
         emb_binpack = (emb_dev.reshape(t, 8, 128, d).transpose(1, 2)
                        .reshape(t * 128, 8, d).contiguous())

@@ -123,7 +123,7 @@ class HashedNGramEncoder:
 
     def encode_device(self, texts: List[str], chunk: int | None = None,
                       idf: np.ndarray | None = None, assoc=None,
-                      basis: np.ndarray | None = None) -> torch.Tensor:
+                      basis: np.ndarray | torch.Tensor | None = None) -> torch.Tensor:
         """Encode in fixed-size chunks: the native featurizer's COO triplets go
         to the device padded to a fixed nnz cap (``chunk * 256``, else the
         next power of two; padding entries point at a dump row), where they
@@ -135,7 +135,8 @@ class HashedNGramEncoder:
         largest bucket that fits is looped. ``idf`` ([buckets]) weights the
         features of documents and queries alike; ``assoc`` (from
         ``train_associations``) expands query features; ``basis``
-        ([buckets, dim], from ``fit_projection``) replaces the Gaussian."""
+        ([buckets, dim] numpy or tensor, from ``fit_projection`` or carried
+        across from the JAX package) replaces the Gaussian."""
         if not texts:
             return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
         if chunk is None:
@@ -147,8 +148,12 @@ class HashedNGramEncoder:
         idf_v = (np.ones(self.buckets, np.float32) if idf is None
                  else np.asarray(idf, np.float32))
         idf_dev = torch.from_numpy(idf_v).to(self.device)
-        proj = self._proj if basis is None else torch.from_numpy(
-            np.array(basis, np.float32)).to(self.device)
+        if basis is None:
+            proj = self._proj
+        elif isinstance(basis, torch.Tensor):
+            proj = basis.to(self.device, torch.float32)
+        else:
+            proj = torch.from_numpy(np.array(basis, np.float32)).to(self.device)
         fixed_cap = chunk * 256
         outs = []
         for i in range(0, len(texts), chunk):
@@ -170,7 +175,7 @@ class HashedNGramEncoder:
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     def encode(self, texts: List[str], idf: np.ndarray | None = None,
-               assoc=None, basis: np.ndarray | None = None) -> np.ndarray:
+               assoc=None, basis: np.ndarray | torch.Tensor | None = None) -> np.ndarray:
         return self.encode_device(texts, idf=idf, assoc=assoc,
                                   basis=basis).cpu().numpy()
 

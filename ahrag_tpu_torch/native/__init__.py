@@ -16,7 +16,6 @@ the tests hold this one against.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +25,8 @@ from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
+
+from ahrag_tpu_torch.utils.once import locked_cache
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ahrag_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -82,9 +83,12 @@ def build() -> dict:
     return {"path": str(out), "seconds": seconds, "built": True}
 
 
-@functools.cache
+
+
+@locked_cache
 def load_library() -> ctypes.CDLL:
-    """The featurizer's library, built on first use."""
+    """The featurizer's library, built on first use. Thread-safe: the first
+    of several concurrent callers builds it, the others wait."""
     lib = ctypes.CDLL(build()["path"])
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

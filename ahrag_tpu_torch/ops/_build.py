@@ -13,15 +13,17 @@ reused. It is built at first use, never at import.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
+
+from ahrag_tpu_torch.utils.once import locked_cache
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -104,9 +106,14 @@ def launch_args(q: torch.Tensor, emb: torch.Tensor,
             torch.cuda.current_stream(emb.device).cuda_stream)
 
 
-@functools.cache
+_COUNT_LOCK = threading.Lock()
+
+
+@locked_cache
 def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first use. Needs a Hopper card (9, 0)."""
+    """The kernels' library, built on first use. Needs a Hopper card (9, 0).
+    Thread-safe: the first of several concurrent callers builds and loads,
+    the others wait for it and share the result."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; none is available")
     cap = torch.cuda.get_device_capability()
@@ -119,3 +126,10 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock, so that the count stays
+    right when several threads launch (the serving pipeline's workers)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -14,9 +14,10 @@ so that a small batch streams the corpus once. Each is exact in its products,
 so kernel and plain version differ only in summation order.
 
 Each wrapper launches the hand-written CUDA kernel (``csrc/binmax.cu``) for a
-CUDA tensor, counting the launch in its ``launches`` attribute, and takes the
-plain PyTorch version (``*_ref``) only for a tensor on the CPU. There is no
-fallback from the kernel to the plain version.
+CUDA tensor, counting the launch in its ``launches`` attribute (under a lock,
+since serving threads launch concurrently), and takes the plain PyTorch
+version (``*_ref``) only for a tensor on the CPU. There is no fallback from
+the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Tuple
 import torch
 
 from ahrag_tpu_torch.device import f32_matmul
-from ahrag_tpu_torch.ops._build import SMEM_LIMIT, launch_args
+from ahrag_tpu_torch.ops._build import SMEM_LIMIT, count_launch, launch_args
 
 NEG_INF = -1e30
 
@@ -171,7 +172,7 @@ def dense_binmax2(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
                            int(trivial), bins.data_ptr(), smax.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"ahrag_binmax2 launch failed: cudaError {rc}")
-    dense_binmax2.launches += 1
+    count_launch(dense_binmax2)
     return bins, smax
 
 
@@ -195,7 +196,7 @@ def dense_binmax(q: torch.Tensor, emb: torch.Tensor, n_valid: int,
                           out.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"ahrag_binmax launch failed: cudaError {rc}")
-    dense_binmax.launches += 1
+    count_launch(dense_binmax)
     return out
 
 

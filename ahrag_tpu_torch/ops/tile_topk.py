@@ -15,8 +15,9 @@ shared memory, bf16 products on the tensor cores (wgmma, fed by TMA) and
 float32 ones as IEEE FMA on register tiles, and then runs the selection
 passes over it.
 ``tile_topk`` launches the hand-written CUDA kernel (``csrc/tile_topk.cu``) for
-a CUDA tensor, counting the launch in its ``launches`` attribute, and takes the
-plain PyTorch version (``dense_topk_fused_ref``) only for a tensor on the CPU.
+a CUDA tensor, counting the launch in its ``launches`` attribute (under a
+lock), and takes the plain PyTorch version (``dense_topk_fused_ref``) only for
+a tensor on the CPU.
 There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Tuple
 import torch
 
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
-from ahrag_tpu_torch.ops._build import SMEM_LIMIT, launch_args
+from ahrag_tpu_torch.ops._build import SMEM_LIMIT, count_launch, launch_args
 from ahrag_tpu_torch.ops.binmax import NEG_INF, ring_smem_bytes
 
 
@@ -129,7 +130,7 @@ def tile_topk(q: torch.Tensor, emb: torch.Tensor, n_valid: int, k: int,
         stream)
     if rc:
         raise RuntimeError(f"ahrag_tile_topk launch failed: cudaError {rc}")
-    tile_topk.launches += 1
+    count_launch(tile_topk)
     return vals, idx
 
 

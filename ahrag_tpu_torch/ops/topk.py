@@ -16,7 +16,6 @@ Ties resolve to the lowest index everywhere (``stable_topk``).
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
 from ahrag_tpu_torch.ops.binmax import NEG_INF, dense_binmax, dense_binmax2
 from ahrag_tpu_torch.ops.tile_topk import dense_topk_fused
+from ahrag_tpu_torch.utils.once import locked_cache
 
 # Queries per coarse pass on the card. It bounds the [tiles, B, 128] float32
 # bin buffer (546 MB at 1M rows); each further chunk re-reads the corpus once.
@@ -77,7 +77,7 @@ def _max_err(x: torch.Tensor, true: np.ndarray) -> float:
     return float(np.max(np.abs(x.double().cpu().numpy() - true)))
 
 
-@functools.lru_cache(maxsize=None)
+@locked_cache
 def matmul_eps(device: str, d: int, bf16_in: bool) -> float:
     """Calibrated bound on |coarse - exact| for unit vectors of dimension ``d``
     on the flat branch (``matmul_eps`` in the JAX package).
@@ -96,7 +96,7 @@ def matmul_eps(device: str, d: int, bf16_in: bool) -> float:
     return 8.0 * (_max_err(coarse, true) + _max_err(exact, true)) + 1e-7
 
 
-@functools.lru_cache(maxsize=None)
+@locked_cache
 def binmax_eps(device: str, d: int, tile_n: int, bf16_in: bool) -> float:
     """Coarse error band calibrated through the port's own bin-max kernels
     (``binmax_eps`` in the JAX package): with ``n_valid = 128`` exactly one row

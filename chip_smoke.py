@@ -47,6 +47,22 @@ print their wall time:
      against the 1M-node graph, the card's ids held against the CPU's;
   7. encoding: ``encode_device`` of the sample corpus with an IDF from
      ``document_frequencies``, on the card and on the CPU;
+  8. a host graph: the sample corpus's 4,050 lines as entities under topic
+     summaries and communities (4,122 nodes, n_pad 5,120), built, indexed
+     (``build_vector_index``: IDF, associations, LSA), saved and loaded as a
+     ``HierarchicalGraph`` on the card and served by a ``RetrievalService``:
+     64 and 256 sample questions through ``search_many`` (``dense_binmax`` at
+     bucket 64, ``dense_binmax2`` at 256) against the same service on the
+     CPU and against ``hg.search``, then ``serve_http`` on port 0 (/healthz,
+     /search with one and three queries, /beam, /stats);
+  9. the service at 1M nodes: phase 3's bf16 tensors behind a
+     ``RetrievalService(max_batch=512, max_wait_s=0.003)`` with a lazily
+     built node table, ``run_load`` at 1, 32 and 256 closed-loop callers x 16
+     requests (qps, p50/p95/p99/max, mean batch, errors, stage timers), the
+     ids of 4 texts against a direct ``pack_queries`` + ``encode_and_search``,
+     and a ``torch.profiler`` trace of 8 batches at bucket 256 (its ten ops
+     with the most device time; the trace goes to
+     ``traces/serve_1m/``);
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -221,14 +237,15 @@ def phase_kernels_vs_plain(dev) -> dict:
     """Both bin-max kernels against their plain versions on small real-width
     inputs: D = 384, 6 tiles (fewer work items than SMs), n_valid short of N,
     a random mask with tile 1 fully masked, masked and trivial. ``dense_binmax2``
-    at B 128 and 512 on exact inputs (halves in [-1, 1]: every score is a
-    float32-exact sum in any order, so bins and supermax must be equal) and on
-    unit vectors (within ``TOL``), with a control (the plain bins rounded to
-    bf16, as a kernel that kept bf16 scores would give) that must read above
-    ``TOL``; ``dense_binmax`` at B 1, 4, 5, 16, 20, 64, 100, 128 and 200 on unit
-    vectors, with its own control. Then ``dense_binmax2`` on exact inputs at
-    D = 200 (the last 64-element box partly past D, zero-filled) and D = 768
-    (32-query chunks in bf16), both types, masked and trivial."""
+    at B 128, 256 (the service's bucket) and 512 on exact inputs (halves in
+    [-1, 1]: every score is a float32-exact sum in any order, so bins and
+    supermax must be equal) and on unit vectors (within ``TOL``), with a
+    control (the plain bins rounded to bf16, as a kernel that kept bf16 scores
+    would give) that must read above ``TOL``; ``dense_binmax`` at B 1, 4, 5,
+    16, 20, 64, 100, 128 and 200 on unit vectors, with its own control. Then
+    ``dense_binmax2`` on exact inputs at D = 200 (the last 64-element box
+    partly past D, zero-filled) and D = 768 (32-query chunks in bf16), both
+    types, masked and trivial."""
     import torch
     from ahrag_tpu_torch.ops.binmax import (dense_binmax, dense_binmax2,
                                             dense_binmax2_ref, dense_binmax_ref)
@@ -251,7 +268,7 @@ def phase_kernels_vs_plain(dev) -> dict:
         mask[tile_n:2 * tile_n] = False
         mask = mask.to(dev)
         n_valid = n - 300
-        for b in (128, 512):
+        for b in (128, 256, 512):
             q = draw(b, family).to(dev, dtype)
             for trivial in (False, True):
                 bins, smax = dense_binmax2(q, emb, n_valid, mask, tile_n, trivial)
@@ -573,6 +590,15 @@ def sample_questions(n: int) -> list:
     return qs[:n]
 
 
+def corpus_lines() -> list:
+    """The 4,050 non-empty lines of the sample corpus, train, dev, test."""
+    lines = []
+    for split in ("train", "dev", "test"):
+        text = (SAMPLES / f"synth_v4_shared_corpus_{split}.txt").read_text()
+        lines += [ln for ln in text.splitlines() if ln.strip()]
+    return lines
+
+
 def host_ms(fn, reps: int) -> tuple[float, object]:
     """Median host milliseconds of ``fn`` over ``reps`` calls, and its last result."""
     times, out = [], None
@@ -661,10 +687,7 @@ def phase_encode(dev, d: int) -> dict:
     import numpy as np
     import torch
     from ahrag_tpu_torch.models.encoder.hashed import HashedNGramEncoder
-    lines = []
-    for split in ("train", "dev", "test"):
-        text = (SAMPLES / f"synth_v4_shared_corpus_{split}.txt").read_text()
-        lines += [ln for ln in text.splitlines() if ln.strip()]
+    lines = corpus_lines()
     enc = HashedNGramEncoder(dim=d, device=dev)
     enc_cpu = HashedNGramEncoder(dim=d, device="cpu")
     enc_cpu._proj = enc._proj.cpu()
@@ -687,6 +710,271 @@ def phase_encode(dev, d: int) -> dict:
           "encode_device shape and values")
     check(err <= 1e-5, f"encode_device card vs CPU differ by {err}")
     return out
+
+
+def corpus_graph(hg):
+    """The sample corpus as a graph: each of its 4,050 lines an entity's
+    description, under topic summaries of 64 members and communities of 8
+    topics (4,122 nodes, n_pad 5,120: the kernel path engages)."""
+    lines = corpus_lines()
+    ents = [hg.add_entity(f"entity {i}", ln) for i, ln in enumerate(lines)]
+    n_top = -(-len(ents) // 64)
+    for t in range(n_top):
+        s = hg.add_summary(t, f"Topic {t}", " ".join(lines[64 * t:64 * t + 2]))
+        for e in ents[64 * t:64 * t + 64]:
+            hg.add_belongs_to(e, s)
+    for c in range(-(-n_top // 8)):
+        s = hg.add_summary(n_top + c, f"Community {c}", f"topics {8 * c} to {8 * c + 7}",
+                           level=2)
+        for t in range(8 * c, min(8 * c + 8, n_top)):
+            hg.add_belongs_to(f"sum:{t}", s)
+    return hg
+
+
+def http_json(base: str, path: str, obj=None) -> tuple:
+    """(status, JSON body) of a GET (``obj`` None) or a JSON POST."""
+    import urllib.request
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"{base}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def result_ids(results) -> list:
+    return [[r["node_id"] for r in res] for res in results]
+
+
+def phase_host_graph(dev) -> dict:
+    """A real host graph on the card: ``corpus_graph`` built, indexed
+    (``build_vector_index``, layers 0-2: IDF, associations, LSA), saved,
+    loaded and served by a ``RetrievalService``. 64 and 256 sample questions
+    through ``search_many`` (buckets 64 and 256: ``dense_binmax`` and
+    ``dense_binmax2``) against the same service on the CPU and against
+    ``hg.search`` on the card; then ``serve_http`` on port 0. Returns the
+    launch counts of the two ``search_many`` calls (the main path)."""
+    import tempfile
+    import threading
+    from ahrag_tpu_torch.graph import HierarchicalGraph
+    from ahrag_tpu_torch.serve import RetrievalService, serve_http
+    t0 = time.perf_counter()
+    hg = corpus_graph(HierarchicalGraph(encoder_name="hashed", device=dev))
+    hg.build_vector_index(layers=(0, 1, 2))
+    index_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        hg.save(tmp)
+        loaded = HierarchicalGraph.load(tmp, device=dev)
+        svc_cpu = RetrievalService(graph_dir=tmp, device="cpu")
+    svc = RetrievalService(hg=loaded, device=dev)
+    n_pad = svc.gt.n_pad
+    log(f"  {loaded.number_of_nodes()} nodes (n_pad {n_pad}), built and indexed in "
+        f"{index_s:.1f}s; lsa {loaded._lsa is not None}, assoc in queries "
+        f"{loaded.query_assoc() is not None}")
+    check(loaded.number_of_nodes() == 4122 and n_pad == 5120, "graph size")
+    qs = sample_questions(256)
+    reset_counts()   # the main path: the service at buckets 64 and 256
+    t0 = time.perf_counter()
+    card64 = svc.search_many(qs[:64])
+    t64 = time.perf_counter()
+    card256 = svc.search_many(qs)
+    t256 = time.perf_counter()
+    counts = read_counts()
+    cpu64, cpu256 = svc_cpu.search_many(qs[:64]), svc_cpu.search_many(qs)
+    host = [loaded.search(q) for q in qs[:64]]
+    score_err = max(abs(a["score"] - b["score"]) for x, y in zip(card64, host)
+                    for a, b in zip(x, y))
+    log(f"  search_many 64: {(t64 - t0) * 1e3:.1f} ms, 256: {(t256 - t64) * 1e3:.1f} ms "
+        f"(first calls), launches {counts}; ids card == cpu at 64 "
+        f"{result_ids(card64) == result_ids(cpu64)}, at 256 "
+        f"{result_ids(card256) == result_ids(cpu256)}; == hg.search "
+        f"{result_ids(card64) == result_ids(host)}, max|score diff| {score_err:.1e}")
+    check(result_ids(card64) == result_ids(cpu64), "bucket 64: card ids differ from the CPU's")
+    check(result_ids(card256) == result_ids(cpu256), "bucket 256: card ids differ from the CPU's")
+    check(result_ids(card256[:64]) == result_ids(card64), "buckets 64 and 256 differ")
+    check(result_ids(card64) == result_ids(host) and score_err <= 1e-4,
+          f"service against hg.search: score diff {score_err}")
+    check(all(len(r) == 5 for r in card256), "five results per question")
+
+    server = serve_http(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    health = http_json(base, "/healthz")
+    one = http_json(base, "/search", {"query": qs[0]})
+    three = http_json(base, "/search", {"queries": qs[:3]})
+    beam = http_json(base, "/beam", {"query": qs[0], "beam_width": 8, "depth": 3,
+                                     "top_k": 10})
+    stats = http_json(base, "/stats")
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+    want_beam = [r["node_id"] for r in svc.beam(qs[0], beam_width=8, depth=3, top_k=10)]
+    statuses = [health[0], one[0], three[0], beam[0], stats[0]]
+    log(f"  HTTP /healthz /search(1) /search(3) /beam /stats: {statuses}; beam ids "
+        f"{[r['node_id'] for r in beam[1]['results']][:4]}...")
+    check(statuses == [200] * 5 and health[1]["nodes"] == 4122, f"HTTP statuses {statuses}")
+    check(result_ids(one[1]["results"]) == result_ids(card64[:1]), "HTTP /search one query")
+    check(result_ids(three[1]["results"]) == result_ids(card64[:3]), "HTTP /search three")
+    check([r["node_id"] for r in beam[1]["results"]] == want_beam and want_beam,
+          "HTTP /beam ids")
+    check("search_finalize" in stats[1]["timers"], "HTTP /stats timers")
+    svc.close()
+    svc_cpu.close()
+    return {"index_s": index_s, "launches": counts, "n_pad": n_pad,
+            "search_many_ms": {"64": (t64 - t0) * 1e3, "256": (t256 - t64) * 1e3}}
+
+
+class LazyNodes(dict):
+    """node id ``n<i>`` -> node dict of the bench graph, made at first access
+    (result assembly reads only the returned ids), with the judge and
+    confidence the graph's tensors hold."""
+
+    def __init__(self, arrs):
+        super().__init__()
+        self._arrs = arrs
+
+    def __missing__(self, key):
+        import math
+        a, i = self._arrs, int(key[1:])
+        if a.node_type[i] == 0:
+            d = {"node_type": "entity", "name": f"Node {i}",
+                 "description": f"synthetic entity {i}"}
+        else:
+            d = {"node_type": "summary", "level": int(a.level[i]),
+                 "title": f"Summary {i}", "summary_text": "synthetic summary"}
+            if not math.isnan(a.judge[i]):
+                d["judge_scores"] = {"overall": float(a.judge[i])}
+            if not math.isnan(a.conf[i]):
+                d["confidence"] = float(a.conf[i])
+        self[key] = d
+        return d
+
+    def get(self, key, default=None):
+        return self[key]
+
+
+def bench_service(dev, gt, arrs, **kw):
+    """A ``RetrievalService`` over a bench rung's ``GraphTensors``: the host
+    graph is a shim whose node table is built lazily (``LazyNodes``), since
+    serving reads only the tensors, the id table and the returned nodes."""
+    from ahrag_tpu_torch.graph import HierarchicalGraph
+    from ahrag_tpu_torch.serve import RetrievalService
+    hg = HierarchicalGraph(encoder_name="hashed", device=dev)
+    hg.nodes = LazyNodes(arrs)
+    hg._tensors = gt
+    hg._idx_to_id = [f"n{i}" for i in range(arrs.n)]
+    hg._embeddings = {"n0": arrs.emb[0]}   # indexed: nothing to (re)build
+    hg.vector_index["indexed_nodes"] = arrs.n
+    return RetrievalService(hg=hg, device=dev, **kw)
+
+
+# (closed-loop callers, requests per caller) of each phase 9 load: at least
+# 1,024 requests per load, so p99 is not the largest sample
+SERVICE_LOADS = ((1, 1024), (32, 64), (256, 32))
+P99_MIN_REQUESTS = 1000
+
+
+def phase_service_1m(dev, gt, gt_cpu, arrs, loads=SERVICE_LOADS) -> dict:
+    """The service at full width: the 1M-node bf16 rung behind
+    ``RetrievalService(max_batch=512, max_wait_s=0.003)``, driven by
+    ``run_load`` at each (callers, requests per caller) of ``loads``; per
+    load the requests, window, qps, p50/p95/p99/max (p99 only over at least
+    ``P99_MIN_REQUESTS`` requests), mean batch, errors and the stage timers.
+    Then the ids of 1, 4, 16 and 256 texts (buckets 1, 4, 16 and 256:
+    ``dense_binmax`` and ``dense_binmax2``) through ``search_many`` against
+    the same service built with ``device="cpu"`` over the same tensors, and
+    of the 4 texts against a direct ``pack_queries`` + ``encode_and_search``
+    with the service's own staged projection and idf. Last, 8 batches at
+    bucket 256 timed without and then under ``profiling.trace``. Returns the
+    launch counts of the loads (the main path), the per-load rows and the
+    trace's top ops."""
+    import os
+    import torch
+    from ahrag_tpu_torch.cli.serve_bench import run_load
+    from ahrag_tpu_torch.serve import encode_and_search, pack_queries
+    from ahrag_tpu_torch.utils import profiling
+    svc = bench_service(dev, gt, arrs, max_batch=512, max_wait_s=0.003)
+    qs = sample_questions(256)
+    reset_counts()   # the main path: the service under load
+    rows = []
+    for threads, requests in loads:
+        before = svc._batcher.stats()
+        rep = run_load(svc, qs, threads=threads, requests_per_thread=requests)
+        after = svc._batcher.stats()
+        batches = after["batches"] - before["batches"]
+        timers = svc.timers.snapshot()
+        lat = rep["latency_ms"]
+        row = {"callers": threads, "requests": rep["requests"], "window_s": rep["wall_s"],
+               "qps": rep["qps"], "p50_ms": lat.get("p50_ms"), "p95_ms": lat.get("p95_ms"),
+               "p99_ms": lat.get("p99_ms") if rep["requests"] >= P99_MIN_REQUESTS else None,
+               "max_ms": lat.get("max_ms"),
+               "mean_batch": (after["items"] - before["items"]) / max(1, batches),
+               "batches": batches, "errors": rep["errors"],
+               "stage_mean_ms": {k: v["mean_s"] * 1e3 for k, v in timers.items()},
+               "stage_count": {k: v["count"] for k, v in timers.items()}}
+        rows.append(row)
+        log(f"  load {json.dumps(row)}")
+        check(rep["errors"] == 0, f"{threads} callers: {rep['errors']} errors")
+    counts = read_counts()
+    texts = ["who directed the 1994 biographical film ed wood",
+             "american superhero film directed by scott derrickson",
+             "hierarchical retrieval over topic summaries",
+             "community of film directors and their works"]
+    svc_cpu = bench_service(torch.device("cpu"), gt_cpu, arrs, max_batch=512)
+    for batch in ([texts[0]], texts, qs[:16], qs):
+        card = svc.search_many(batch)
+        t0 = time.perf_counter()
+        cpu = svc_cpu.search_many(batch)
+        score_err = max(abs(a["score"] - b["score"]) for x, y in zip(card, cpu)
+                        for a, b in zip(x, y))
+        same = result_ids(card) == result_ids(cpu)
+        log(f"  bucket {svc._bucket(len(batch))}: ids card == cpu {same}, max|score "
+            f"diff| {score_err:.1e} (entries rounded to 1e-4), cpu "
+            f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+        check(same and all(card), f"bucket {len(batch)}: card ids differ from the CPU's")
+    svc_cpu.close()
+    served = result_ids(svc.search_many(texts))
+    n, n_rows, packed = pack_queries(texts, svc._enc)
+    direct = encode_and_search(packed, svc._proj_dev, svc._idf_dev, svc.gt, svc._w_cached,
+                               n_rows=n_rows, top_k=5, member_top_m=5).cpu()
+    direct_ids = [[f"n{int(i)}" for i, ok in zip(r[:, 0].tolist(), r[:, 3].tolist()) if ok]
+                  for r in direct[:n]]
+    log(f"  4 texts: service ids {served[0]}... == direct {served == direct_ids}")
+    check(served == direct_ids, "service ids differ from pack_queries + encode_and_search")
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "traces", "serve_1m")
+    svc.search_many(qs)
+
+    def eight_batches():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            svc.search_many(qs)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_wall_ms = eight_batches()
+    with profiling.trace(logdir) as prof:
+        wall_ms = eight_batches()
+    # kernels (device-side events) by their device time; the ops that launch
+    # them by the device time of their own launches
+    avgs = prof.key_averages()
+    kernels = sorted((e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    ops = sorted((e for e in avgs if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count] for e in kernels[:10]]
+    top_ops = [[e.key, round(e.self_device_time_total / 1e3, 3), e.count] for e in ops[:10]]
+    log(f"  8 batches at bucket 256: wall {plain_wall_ms:.1f} ms untraced, {wall_ms:.1f} ms "
+        f"traced (written to {logdir}); kernels {device_ms:.1f} ms: the card busy "
+        f"{device_ms / plain_wall_ms:.1%} of the untraced wall "
+        f"({device_ms / wall_ms:.1%} of the traced)")
+    log(f"  top 10 kernels by device time [name, ms, launches]: {json.dumps(top)}")
+    log(f"  top 10 ops by the device time they launch [op, ms, calls]: {json.dumps(top_ops)}")
+    svc.close()
+    return {"launches": counts, "loads": rows, "trace": {
+        "wall_ms": wall_ms, "untraced_wall_ms": plain_wall_ms, "device_ms": device_ms,
+        "top_kernels": top, "top_ops": top_ops}}
 
 
 def main() -> int:
@@ -841,8 +1129,23 @@ def main() -> int:
     encoded = phase_encode(dev, d)
     log(f"phase 7 done in {time.perf_counter() - t:.1f}s")
 
+    t = time.perf_counter()
+    log("phase 8: a host graph of the sample corpus, indexed, saved, loaded and served")
+    hosted = phase_host_graph(dev)
+    check(hosted["launches"]["binmax_cuda"] > 0 and hosted["launches"]["binmax2_cuda"] > 0,
+          f"both bin-max kernels on the service path: {hosted['launches']}")
+    log(f"phase 8 done in {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    log("phase 9: the service at 1M nodes, bf16, max_batch 512")
+    loaded = phase_service_1m(dev, gt, gt_cpu, r1["arrs"])
+    check(loaded["launches"]["binmax_cuda"] > 0 and loaded["launches"]["binmax2_cuda"] > 0,
+          f"both bin-max kernels under load: {loaded['launches']}")
+    log(f"phase 9 done in {time.perf_counter() - t:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
+                   + hosted["launches"][k] + loaded["launches"][k]
                    for k in rows}
     kernels = []
     for name, source, replaces in (
@@ -873,7 +1176,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,9 +29,14 @@ from ahrag_tpu_torch.graph.tensors import build_graph_tensors
 from ahrag_tpu_torch.graph.search import SearchWeights
 from ahrag_tpu_torch.models.encoder.hashed import HashedNGramEncoder
 from ahrag_tpu_torch.bench_data import build_bench_arrays, bench_tensors
+from ahrag_tpu_torch.graph import HierarchicalGraph
+from ahrag_tpu_torch.serve import RetrievalService
 calls = [lambda: SearchWeights.create(),
          lambda: HashedNGramEncoder(dim=8, buckets=64),
-         lambda: bench_tensors(build_bench_arrays(64, 8, d=8), "float32")]
+         lambda: bench_tensors(build_bench_arrays(64, 8, d=8), "float32"),
+         lambda: HierarchicalGraph(encoder_name="hashed").tensors(),
+         lambda: HierarchicalGraph.load("graph_that_is_not_there"),
+         lambda: RetrievalService(graph_dir="graph_that_is_not_there")]
 for fn in calls:
     try:
         fn()
@@ -112,13 +117,178 @@ def test_new_entry_points_refuse_cpu_fallback():
     assert "ok" in proc.stdout
 
 
+# Where the port may not hold a ``try`` at all: the kernels, the native
+# featurizer, the models and every module of the search path.
+NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/models/",
+          "ahrag_tpu_torch/device.py", "ahrag_tpu_torch/graph/search.py",
+          "ahrag_tpu_torch/graph/tensors.py", "ahrag_tpu_torch/graph/beam.py",
+          "ahrag_tpu_torch/bench_data.py", "ahrag_tpu_torch/convert.py", "chip_smoke.py")
+PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
+HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
+
+
+def _dotted(node) -> str:
+    if isinstance(node, ast.Name):
+        return node.id
+    if isinstance(node, ast.Attribute):
+        return f"{_dotted(node.value)}.{node.attr}"
+    return ""
+
+
+def _is_parse_guard(t: ast.Try) -> bool:
+    """(a) the body is one ``float``/``int``/``json.loads``/``json.load`` call
+    (returned or assigned), every handler names (TypeError, ValueError) and
+    yields a constant."""
+    if len(t.body) != 1 or not isinstance(t.body[0], (ast.Return, ast.Assign)):
+        return False
+    call = t.body[0].value
+    if not (isinstance(call, ast.Call) and _dotted(call.func) in PARSE_CALLS):
+        return False
+    for h in t.handlers:
+        names = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+        if sorted(_dotted(n) for n in names) != ["TypeError", "ValueError"]:
+            return False
+        if not (len(h.body) == 1 and isinstance(h.body[0], (ast.Return, ast.Assign))
+                and isinstance(h.body[0].value, ast.Constant)):
+            return False
+    return True
+
+
+def _is_hand_off(t: ast.Try, scopes) -> bool:
+    """(b) inside ``MicroBatcher`` or ``serve_http``: each handler only
+    publishes the exception to the waiting submitters (``self._publish``) or
+    writes an HTTP error response (``self._json`` with a code >= 400), then
+    continues, returns or passes."""
+    if not HAND_OFF_SCOPES & set(scopes):
+        return False
+    for h in t.handlers:
+        for st in h.body:
+            if isinstance(st, (ast.Continue, ast.Pass)) or (
+                    isinstance(st, ast.Return) and st.value is None):
+                continue
+            if not (isinstance(st, ast.Expr) and isinstance(st.value, ast.Call)):
+                return False
+            name = _dotted(st.value.func)
+            if name == "self._publish":
+                continue
+            code = st.value.args[0] if st.value.args else None
+            if not (name == "self._json" and isinstance(code, ast.Constant)
+                    and isinstance(code.value, int) and code.value >= 400):
+                return False
+    return True
+
+
+def try_faults(source: str, no_try: bool = False) -> list:
+    """Every ``try`` of ``source`` that breaks the port's rule, as strings."""
+    faults = []
+
+    def visit(node, scopes):
+        if isinstance(node, (ast.Try, getattr(ast, "TryStar", ast.Try))):
+            where = f"line {node.lineno} in {'.'.join(scopes) or '<module>'}"
+            if no_try:
+                faults.append(f"{where}: no try is allowed in this file")
+            if node.finalbody:
+                faults.append(f"{where}: finally")
+            for h in node.handlers:
+                if h.type is None:
+                    faults.append(f"{where}: bare except")
+                for sub in ast.walk(h):
+                    name = _dotted(sub.func) if isinstance(sub, ast.Call) else ""
+                    if (name.endswith("_ref") or name.split(".")[-1] in ("cpu", "to")
+                            or (isinstance(sub, ast.Constant) and sub.value == "cpu")):
+                        faults.append(f"{where}: the handler falls back ({ast.unparse(sub)})")
+            if not (_is_parse_guard(node) or _is_hand_off(node, scopes)):
+                faults.append(f"{where}: neither a parse guard nor a hand-off")
+        inner = scopes + [node.name] if isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) else scopes
+        for child in ast.iter_child_nodes(node):
+            visit(child, inner)
+
+    visit(ast.parse(source), [])
+    return faults
+
+
 def test_no_try_in_the_port():
     """No kernel falls back to its plain version, and no native call to
-    Python, on failure: the port has no ``try`` statement at all."""
+    Python, on failure: no ``try`` at all in the kernels, the native code, the
+    models and the search path; elsewhere only a parse guard (``float``,
+    ``int`` or ``json`` parsing that yields a constant on (TypeError,
+    ValueError)) or a hand-off of a batch's exception to its submitters or to
+    an HTTP error response. No bare ``except``, no ``finally``, and no handler
+    that calls a ``*_ref`` function, names "cpu" or moves a tensor."""
     for path in PORT_FILES:
-        tries = [n.lineno for n in ast.walk(ast.parse(path.read_text()))
-                 if isinstance(n, (ast.Try, getattr(ast, "TryStar", ast.Try)))]
-        assert not tries, f"{path.relative_to(ROOT)} has a try at lines {tries}"
+        rel = str(path.relative_to(ROOT))
+        faults = try_faults(path.read_text(), no_try=rel.startswith(NO_TRY))
+        assert not faults, f"{rel}: {faults}"
+
+
+PLANTED = {
+    "kernel falls back to its plain version": """
+def dense_binmax(q, emb, n_valid, mask):
+    try:
+        return launch(q, emb)
+    except RuntimeError:
+        return dense_binmax_ref(q, emb, n_valid, mask)
+""",
+    "a hand-off scope that falls back": """
+class MicroBatcher:
+    def _run(self, batch):
+        try:
+            out = self._stages[0](batch)
+        except Exception as exc:
+            out = dense_binmax_ref(batch)
+""",
+    "a parse guard that moves to the CPU": """
+def parse(x):
+    try:
+        return float(x)
+    except (TypeError, ValueError):
+        return x.to("cpu")
+""",
+    "bare except": """
+def parse(x):
+    try:
+        return int(x)
+    except:
+        return None
+""",
+    "finally": """
+class MicroBatcher:
+    def _run(self):
+        try:
+            self.step()
+        except Exception as exc:
+            self._publish(0, 1, ("err", exc))
+        finally:
+            self.cleanup()
+""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANTED))
+def test_no_try_rule_catches_a_planted_fallback(name):
+    assert try_faults(PLANTED[name]), name
+
+
+def test_no_try_rule_takes_the_allowed_shapes():
+    ok = """
+def _float_or_none(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return None
+
+class MicroBatcher:
+    def _run(self, batch, gen):
+        while True:
+            try:
+                token = self._stages[0](batch)
+            except Exception as exc:
+                self._publish(gen, len(batch), ("err", exc))
+                continue
+"""
+    assert try_faults(ok) == []
+    assert try_faults(ok, no_try=True)
 
 
 def test_signatures_match_the_cuda_launchers():
