@@ -12,6 +12,10 @@ and nothing of ``ahrag_tpu``.
     ahrag_tpu_torch.graph.search         batched hybrid search
     ahrag_tpu_torch.graph.host           HierarchicalGraph: build, save/load, index, search
     ahrag_tpu_torch.graph.beam           multi-level beam-search traversal
+    ahrag_tpu_torch.graph.multi          stacked graphs: many-graph search and rollouts
+    ahrag_tpu_torch.agent                featurizer, rewards, the batched traversal
+                                         environment (vec_env), PPO, BC, RLPolicyAgent
+    ahrag_tpu_torch.models.policy.nets   the policy networks (MLPPolicy, ActorCritic)
     ahrag_tpu_torch.models.encoder.hashed  hashed n-gram query encoder
     ahrag_tpu_torch.serve                fused query encode + search, MicroBatcher,
                                          RetrievalService, serve_http
@@ -19,6 +23,7 @@ and nothing of ``ahrag_tpu``.
     ahrag_tpu_torch.cli                  serve (HTTP) and serve_bench (load test)
     ahrag_tpu_torch.bench_data           synthetic bench corpus and CPU reference search
     ahrag_tpu_torch.convert              state carried across from ``ahrag_tpu`` as numpy
+                                         (graph tensors, weights, flax policy params)
 
 Entry points take a ``device`` argument and run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no card they raise rather than fall back.

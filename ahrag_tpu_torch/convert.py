@@ -55,3 +55,16 @@ def search_weights_from_numpy(w: Dict[str, object], device=None) -> SearchWeight
     dev = resolve_device(device)
     return SearchWeights(**{f.name: tensor_from_numpy(np.asarray(w[f.name]), dev)
                             for f in fields(SearchWeights)})
+
+
+def policy_params_from_numpy(tree: Dict[str, Dict[str, object]]) -> Dict[str, torch.Tensor]:
+    """A flax Dense param tree (``{layer: {"kernel": [in, out], "bias":
+    [out]}}``, numpy or JAX arrays) as the ``state_dict`` of the port's
+    ``MLPPolicy`` or ``ActorCritic`` (``{layer}.weight [out, in]``,
+    ``{layer}.bias``), on the CPU; ``load_state_dict`` moves it."""
+    out = {}
+    for name, layer in tree.items():
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.array(layer["kernel"], np.float32).T.copy())
+        out[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+    return out

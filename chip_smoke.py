@@ -63,6 +63,23 @@ print their wall time:
      and a ``torch.profiler`` trace of 8 batches at bucket 256 (its ten ops
      with the most device time; the trace goes to
      ``traces/serve_1m/``);
+ 10. the agent at 1M nodes (phase 3's tensors, max_steps 6): ``rollout_batch``
+     at B = 512 (``dense_binmax2``) and 16 (``dense_binmax``) with the
+     full-width ``ActorCritic`` and with the random policy, checked (no
+     masked action taken, logps and values against a direct forward, first
+     steps live) and timed (``env_reset``, ``env_step``, ``observe``, the
+     rollout, episodes/s); a scripted policy on 64 lanes on the card and on
+     phase 6's CPU tensors (actions, rewards, dones, masks and the final
+     state equal, observations within 1e-5); ``env_reset``'s anchors
+     against certified ``hybrid_search_batch`` at B = 512; related and LCA
+     steps on a 4,584-node graph with hyperedges, card against CPU; one
+     ``env_step`` and one ``observe`` under
+     ``torch.cuda.set_sync_debug_mode("error")``; ``ppo_train_device`` for
+     3 updates of 512 episodes, saved and reloaded (``artifacts/chip_smoke/``),
+     one ``update`` and one ``make_train_step`` step timed; and
+     ``rollout_multi`` over 8 stacked graphs, its anchors against each
+     graph's own search; a ``torch.profiler`` trace of one B = 512 rollout
+     (``traces/agent_1m/``: kernel time, launches, busy share);
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -977,6 +994,295 @@ def phase_service_1m(dev, gt, gt_cpu, arrs, loads=SERVICE_LOADS) -> dict:
         "top_kernels": top, "top_ops": top_ops}}
 
 
+# the scripted deterministic policy of phase 10: the action for
+# each observation's env step field (obs[:, 0]); together the six steps of an
+# episode take actions 0-5 (a masked choice falls to end)
+AGENT_SCHEDULE = (0, 0, 3, 1, 2, 4, 5, 5)
+AGENT_BATCHES = (512, 16)        # dense_binmax2 (B % 128 == 0) and dense_binmax
+
+
+def scripted_policy(obs):
+    """Logits one-hot x 1e4 at ``AGENT_SCHEDULE[step]``, value 0."""
+    import torch
+    sched = torch.tensor(AGENT_SCHEDULE, device=obs.device)
+    a = sched[obs[:, 0].long().clamp(0, len(AGENT_SCHEDULE) - 1)]
+    return (torch.nn.functional.one_hot(a, 6).float() * 1e4,
+            torch.zeros(obs.shape[0], device=obs.device))
+
+
+def random_policy(obs):
+    """``collect_trajectories.collect_device``'s policy: uniform logits."""
+    import torch
+    return (torch.zeros(obs.shape[0], 6, device=obs.device),
+            torch.zeros(obs.shape[0], device=obs.device))
+
+
+def check_rollout(what, traj, policy):
+    """Masked actions never taken, ``logps`` the masked log-softmax at the
+    taken action, ``values`` a direct forward of the stored observations,
+    every first step live. Returns the largest logp and value differences."""
+    import torch
+    from ahrag_tpu_torch.agent.vec_env import N_ACTIONS
+    obs = traj.obs.reshape(-1, traj.obs.shape[-1])
+    has_top = traj.obs[..., 4:7].sum(-1) > 0              # first node block's type one-hot
+    check(bool(((traj.actions == N_ACTIONS - 1) | has_top | ~traj.mask).all()),
+          f"{what}: a masked action was taken")
+    check(bool(traj.mask[:, 0].all()), f"{what}: a first step was not live")
+    with torch.no_grad():
+        logits, value = policy(obs)
+    mask = has_top.reshape(-1, 1) | (torch.arange(N_ACTIONS, device=obs.device) == N_ACTIONS - 1)
+    logp = torch.log_softmax(torch.where(mask, logits, -1e9), -1).gather(
+        1, traj.actions.reshape(-1, 1).long())[:, 0]
+    lp_err = (logp - traj.logps.reshape(-1)).abs().max().item()
+    v_err = (value - traj.values.reshape(-1)).abs().max().item()
+    check(lp_err <= 1e-5 and v_err <= 1e-5,
+          f"{what}: logps differ by {lp_err}, values by {v_err}")
+    check(all(bool(torch.isfinite(x).all()) for x in (traj.obs, traj.rewards, traj.logps)),
+          f"{what}: finite trajectory")
+    return lp_err, v_err
+
+
+def hyperedge_graph(d: int, device):
+    """A bench hierarchy of 4,072 nodes plus 512 hyperedges of three entities
+    each (every entity in up to two), with entity-entity related links:
+    4,584 nodes, n_pad 5,120, so the seed kernels run, and ``related``,
+    ``hyperedges`` and ``members`` all have entries. Returns (tensors, 64
+    queries near hyperedge members)."""
+    import numpy as np
+    from ahrag_tpu_torch.bench_data import build_bench_arrays
+    from ahrag_tpu_torch.graph.tensors import build_graph_tensors
+    a = build_bench_arrays(4000, 64, d=d, seed=13)
+    rng = np.random.default_rng(13)
+    n0, H = a.n, 512
+    groups = np.concatenate([rng.permutation(a.n_entities)[:768].reshape(256, 3),
+                             rng.permutation(a.n_entities)[:768].reshape(256, 3)])
+    hemb = a.emb[groups].sum(1)
+    hemb /= np.linalg.norm(hemb, axis=1, keepdims=True)
+    hyper = {}
+    for h, g in enumerate(groups):
+        for e in g:
+            hyper.setdefault(int(e), []).append(n0 + h)
+    members = {n0 + h: [int(e) for e in g] for h, g in enumerate(groups)}
+    related = {i: [int(x) for x in row if x >= 0] for i, row in enumerate(a.related_ell)}
+    for i in range(0, a.n_entities - 1, 5):
+        related.setdefault(i, []).append(i + 1)
+        related.setdefault(i + 1, []).append(i)
+
+    def ext(ell):
+        return np.concatenate([ell, np.full((H, ell.shape[1]), -1, np.int32)])
+
+    gt = build_graph_tensors(
+        embeddings=np.concatenate([a.emb, hemb]).astype(np.float32),
+        node_types=np.concatenate([a.node_type, np.full(H, 2, np.int32)]),
+        levels=np.concatenate([a.level, np.zeros(H, np.int32)]),
+        judges=np.concatenate([a.judge, np.full(H, np.nan)]),
+        confs=np.concatenate([a.conf, 5.0 + np.arange(H) % 4]),
+        indexed=np.ones(n0 + H, bool), parents=ext(a.parents_ell),
+        children=ext(a.children_ell), related=related, hyperedges=hyper,
+        members=members, emb_dtype="float32", device=device)
+    picks = groups[rng.integers(0, H, 64), rng.integers(0, 3, 64)]
+    q = a.emb[picks] + 0.3 * rng.standard_normal((64, d)).astype(np.float32)
+    return gt, (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def small_graphs(d: int, device, g: int = 8):
+    """``g`` bench graphs of 300-1,000 entities (under 4,096 rows each), one
+    query per graph."""
+    import numpy as np
+    from ahrag_tpu_torch.bench_data import bench_queries, bench_tensors, build_bench_arrays
+    gts, qs = [], []
+    for i in range(g):
+        arrs = build_bench_arrays(300 + 100 * i, 8 + 4 * i, d=d, seed=20 + i)
+        gts.append(bench_tensors(arrs, "float32", device=device))
+        qs.append(bench_queries(arrs, 1, seed=30 + i)[0])
+    return gts, np.stack(qs)
+
+
+def phase_agent(dev, r1, gt_cpu, smi: str) -> dict:
+    """The agent at 1M nodes (phase 3's bf16 tensors, D = 384, max_steps 6):
+    rollouts, card against CPU, anchors, a hyperedge graph, the sync guard,
+    PPO training and multi-graph rollouts. Returns the main path's launch
+    counts (the rollouts and the training) and the times."""
+    import os
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.agent import vec_env as ve
+    from ahrag_tpu_torch.agent.featurizer import OBS_DIM
+    from ahrag_tpu_torch.agent.ppo import (PPOConfig, PPOLearner, gae_device,
+                                           make_train_step, ppo_train_device)
+    from ahrag_tpu_torch.graph.multi import (hybrid_search_multi, rollout_multi,
+                                             stack_graph_tensors)
+    from ahrag_tpu_torch.graph.search import SearchWeights, hybrid_search_batch
+    from ahrag_tpu_torch.models.policy.nets import ActorCritic
+    gt, w, q_all = r1["gt"], r1["w"], r1["q_dev"][:512].contiguous()
+    n_pad = gt.n_pad
+    launches = {k: 0 for k in read_counts()}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        for k, v in read_counts().items():
+            launches[k] += v
+        return out
+
+    ac = ActorCritic(OBS_DIM, ve.N_ACTIONS, seed=0, device=dev)
+    times, rollouts = {}, {}
+    for B in AGENT_BATCHES:
+        q = q_all[:B]
+        for name, policy in (("actor_critic", ac), ("random", random_policy)):
+            gen = torch.Generator(device=dev).manual_seed(B)
+            before = dict(launches)
+            traj, final = counted(lambda: ve.rollout_batch(gt, q, policy, w, max_steps=6,
+                                                           generator=gen))
+            lp_err, v_err = check_rollout(f"B={B} {name}", traj, policy)
+            used = {k: launches[k] - before[k] for k in launches}
+            rollouts[f"B={B} {name}"] = {
+                "live_steps": int(traj.mask.sum()), "actions": torch.bincount(
+                    traj.actions[traj.mask].long(), minlength=6).tolist(),
+                "mean_ep_reward": float((traj.rewards * traj.mask).sum() / B),
+                "selected": int(final.sel_count.sum()), "launches": used,
+                "logp_err": lp_err, "value_err": v_err}
+        kernel = "binmax2_cuda" if B % 128 == 0 else "binmax_cuda"
+        check(rollouts[f"B={B} actor_critic"]["launches"][kernel] > 0,
+              f"B={B}: {kernel} launched by the rollout's reset")
+        state0 = ve.env_reset(gt, q, w)
+        act = torch.full((B,), 2, dtype=torch.int64, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_ms = cuda_ms(lambda: ve.env_reset(gt, q, w), 10)
+        step_ms = cuda_ms(lambda: ve.env_step(gt, state0, act), 20)
+        obs_ms = cuda_ms(lambda: ve.observe(gt, state0), 20)
+        roll_ms = cuda_ms(lambda: ve.rollout_batch(gt, q, ac, w, max_steps=6, generator=gen), 5)
+        times[f"B={B}"] = {"env_reset_ms": reset_ms, "env_step_ms": step_ms,
+                           "observe_ms": obs_ms, "rollout_ms": roll_ms,
+                           "episodes_per_s": B / roll_ms * 1e3}
+    log(f"  rollouts (6 steps): {json.dumps(rollouts)}")
+    # where a rollout's time goes: its kernels' device time against its wall
+    from ahrag_tpu_torch.utils import profiling
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with profiling.trace(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "traces", "agent_1m")) as prof:
+        ve.rollout_batch(gt, q_all, ac, w, max_steps=6, generator=gen)
+        torch.cuda.synchronize(dev)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    times["trace B=512"] = {
+        "kernel_ms": device_ms, "kernel_launches": sum(e.count for e in kern),
+        "busy_share_of_untraced_rollout": device_ms / times["B=512"]["rollout_ms"],
+        "top_kernels": [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count]
+                        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]]}
+
+    # the reset's anchors are hybrid search's certified reranked ids
+    st = ve.env_reset(gt, q_all, w)
+    res = hybrid_search_batch(gt, q_all, w, top_k=5, member_top_m=5, certify=True)
+    check(torch.equal(st.top_ids[:, :5].long(), res.reranked_idx)
+          and bool((st.top_ids[:, 5:] == n_pad).all()),
+          "env_reset's top ids differ from certified hybrid search at B=512")
+
+    # no host sync inside a step or an observation
+    act = torch.randint(0, 6, (512,), device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(1))
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    st2, _, _ = ve.env_step(gt, st, act)
+    ve.observe(gt, st2)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+
+    # card against CPU: the scripted policy on 64 lanes, over phase 6's CPU tensors
+    q64 = q_all[:64]
+    tc, fc = ve.rollout_batch(gt, q64, scripted_policy, w, max_steps=6)
+    tp, fp = ve.rollout_batch(gt_cpu, q64.cpu(), scripted_policy,
+                              SearchWeights.create(device="cpu"), max_steps=6)
+    for name in ("actions", "rewards", "dones", "mask"):
+        check(torch.equal(getattr(tc, name).cpu(), getattr(tp, name)),
+              f"scripted rollout: {name} card != CPU")
+    for name in ("top_ids", "n_seeds", "obs_sel_size", "obs_frontier_size", "step",
+                 "gym_step", "done", "last_action", "sel_count", "front_count",
+                 "selection", "frontier"):
+        check(torch.equal(getattr(fc, name).cpu(), getattr(fp, name)),
+              f"scripted rollout: final {name} card != CPU")
+    obs_err = (tc.obs.cpu() - tp.obs).abs().max().item()
+    check(obs_err <= 1e-5, f"scripted rollout: observations differ by {obs_err}")
+    taken = torch.bincount(tc.actions[tc.mask].long(), minlength=6).tolist()
+    check(all(taken[:6]), f"scripted rollout takes actions 0-5: {taken}")
+
+    # a graph with hyperedges: related and LCA steps, card against CPU
+    hg_dev, hq = hyperedge_graph(gt.dim, dev)
+    hg_cpu, _ = hyperedge_graph(gt.dim, "cpu")
+    wc = SearchWeights.create(device="cpu")
+    sc = ve.env_reset(hg_dev, torch.from_numpy(hq).to(dev), w)
+    sp = ve.env_reset(hg_cpu, torch.from_numpy(hq), wc)
+    hyper_seen = 0
+    for a in (1, 2, 6, 2, 0, 6, 1, 2, 6, 3):   # children first: entities on top
+        acts = torch.full((64,), a, dtype=torch.int64)
+        sc, rc, _ = ve.env_step(hg_dev, sc, acts.to(dev), enable_lca=True)
+        sp, rp, _ = ve.env_step(hg_cpu, sp, acts, enable_lca=True)
+        check(torch.equal(sc.top_ids.cpu(), sp.top_ids) and torch.equal(rc.cpu(), rp),
+              f"hyperedge graph, action {a}: ids or rewards card != CPU")
+        ids = sp.top_ids[sp.top_ids < hg_cpu.n_pad].long()
+        hyper_seen += int((hg_cpu.node_type[ids] == 2).sum()) if a == 2 else 0
+    check(torch.equal(sc.selection.cpu(), sp.selection)
+          and torch.equal(sc.frontier.cpu(), sp.frontier), "hyperedge graph: masks")
+    check(hyper_seen > 0, "expand_related reached no hyperedge")
+
+    # training at full width: 3 updates of 512 episodes, saved and reloaded
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                           "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "ppo_1m.pt")
+    curve_path = os.path.join(out_dir, "ppo_1m_curve.json")
+    t0 = time.perf_counter()
+    learner = counted(lambda: ppo_train_device(
+        gt, q_all, w, n_updates=3, max_steps=6, batch_size=512, save_path=path,
+        log=lambda s: None, curve_out=curve_path))
+    train_s = time.perf_counter() - t0
+    curve = json.loads(open(curve_path).read())["curve"]
+    check(len(curve) == 3 and all(np.isfinite(v) for c in curve for k, v in c.items()),
+          f"ppo_train_device curve: {curve}")
+    loaded = PPOLearner.load(path, device=dev)
+    x = torch.randn(32, OBS_DIM, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        check(all(torch.equal(u, v) for u, v in zip(learner.model(x), loaded.model(x))),
+              "reloaded policy's logits differ")
+    traj, _ = ve.rollout_batch(gt, q_all, learner.model, w, max_steps=6)
+    adv, ret = gae_device(traj.rewards, traj.values, traj.dones, traj.mask)
+    live = traj.mask.reshape(-1)
+    data = (traj.obs.reshape(-1, OBS_DIM)[live], traj.actions.reshape(-1)[live],
+            traj.logps.reshape(-1)[live], ret.reshape(-1)[live], adv.reshape(-1)[live])
+    update_ms = cuda_ms(lambda: learner.update(*data), 3)
+    step_fn = make_train_step(PPOLearner(OBS_DIM, ve.N_ACTIONS, PPOConfig(), device=dev), w)
+    train_step_ms = cuda_ms(lambda: step_fn(gt, q_all), 3)
+    times["train"] = {"ppo_train_device_3_updates_s": train_s, "update_ms": update_ms,
+                      "update_rows": int(live.sum()), "train_step_ms": train_step_ms}
+
+    # many graphs: anchors against per-graph search, then a rollout
+    gts, mq = small_graphs(gt.dim, dev)
+    bgt = stack_graph_tensors(gts)
+    mq_dev = torch.from_numpy(mq).to(dev)
+    mres = hybrid_search_multi(bgt, mq_dev, w, certify=False)
+    for g, one_gt in enumerate(gts):
+        one = hybrid_search_batch(one_gt, mq_dev[g:g + 1], w, certify=False)
+        ok = one.reranked_valid[0]
+        check(torch.equal(mres.reranked_valid[g], ok)
+              and torch.equal(mres.reranked_idx[g][ok], one.reranked_idx[0][ok]),
+              f"multi-graph anchor of graph {g} differs from its own search")
+    mtraj, _ = rollout_multi(bgt, mq_dev, ac, w, max_steps=6,
+                             generator=torch.Generator(device=dev).manual_seed(3))
+    first = ve.observe(bgt, ve.reset_from_search(mres, bgt.n_pad,
+                                                 graph=torch.arange(len(gts), device=dev)))
+    check(torch.equal(mtraj.obs[:, 0], first), "rollout_multi starts from its anchors")
+    check_rollout("multi-graph", mtraj, ac)
+    times["multi"] = {"graphs": len(gts), "n_pad": bgt.n_pad,
+                      "rollout_ms": cuda_ms(lambda: rollout_multi(bgt, mq_dev, ac, w), 5)}
+    log(f"  agent times ({smi}): {json.dumps(times)}")
+    log(f"  card == CPU on 64 scripted lanes (obs max diff {obs_err:.1e}, actions {taken}); "
+        f"hyperedge graph n_pad {hg_dev.n_pad}: ids equal over related/LCA steps, "
+        f"{hyper_seen} hyperedge ids expanded; main-path launches {launches}")
+    return {"launches": launches, "times": times, "rollouts": rollouts, "curve": curve}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1143,9 +1449,17 @@ def main() -> int:
           f"both bin-max kernels under load: {loaded['launches']}")
     log(f"phase 9 done in {time.perf_counter() - t:.1f}s")
 
+    t = time.perf_counter()
+    log("phase 10: the agent at 1M nodes, bf16: rollouts at B=512 and 16, training, "
+        "many graphs")
+    agent = phase_agent(dev, r1, gt_cpu, smi)
+    check(agent["launches"]["binmax_cuda"] > 0 and agent["launches"]["binmax2_cuda"] > 0,
+          f"both bin-max kernels on the agent's path: {agent['launches']}")
+    log(f"phase 10 done in {time.perf_counter() - t:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
-                   + hosted["launches"][k] + loaded["launches"][k]
+                   + hosted["launches"][k] + loaded["launches"][k] + agent["launches"][k]
                    for k in rows}
     kernels = []
     for name, source, replaces in (
@@ -1176,7 +1490,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

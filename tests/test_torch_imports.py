@@ -12,6 +12,12 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ahrag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "ahrag_tpu", "bench")
+# the agent's device path: each must be found and imported by the guard below
+AGENT_MODULES = ("ahrag_tpu_torch.agent.featurizer", "ahrag_tpu_torch.agent.reward",
+                 "ahrag_tpu_torch.agent.vec_env", "ahrag_tpu_torch.agent.optim",
+                 "ahrag_tpu_torch.agent.ppo", "ahrag_tpu_torch.agent.bc",
+                 "ahrag_tpu_torch.agent.rl_agent", "ahrag_tpu_torch.models.policy.nets",
+                 "ahrag_tpu_torch.graph.multi")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -23,6 +29,8 @@ import ahrag_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(ahrag_tpu_torch.__path__, "ahrag_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+missing = set({agent!r}) - set(mods)
+assert not missing, missing
 import chip_smoke
 import numpy as np
 from ahrag_tpu_torch.graph.tensors import build_graph_tensors
@@ -31,7 +39,10 @@ from ahrag_tpu_torch.models.encoder.hashed import HashedNGramEncoder
 from ahrag_tpu_torch.bench_data import build_bench_arrays, bench_tensors
 from ahrag_tpu_torch.graph import HierarchicalGraph
 from ahrag_tpu_torch.serve import RetrievalService
-calls = [lambda: SearchWeights.create(),
+from ahrag_tpu_torch.agent.ppo import PPOLearner
+from ahrag_tpu_torch.models.policy.nets import ActorCritic, MLPPolicy
+calls = [lambda: PPOLearner(84, 6), lambda: ActorCritic(84), lambda: MLPPolicy(84),
+         lambda: SearchWeights.create(),
          lambda: HashedNGramEncoder(dim=8, buckets=64),
          lambda: bench_tensors(build_bench_arrays(64, 8, d=8), "float32"),
          lambda: HierarchicalGraph(encoder_name="hashed").tensors(),
@@ -56,7 +67,7 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
-    proc = _run(_GUARD.format(blocked=BLOCKED), ROOT)
+    proc = _run(_GUARD.format(blocked=BLOCKED, agent=AGENT_MODULES), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
@@ -122,7 +133,11 @@ def test_new_entry_points_refuse_cpu_fallback():
 NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/models/",
           "ahrag_tpu_torch/device.py", "ahrag_tpu_torch/graph/search.py",
           "ahrag_tpu_torch/graph/tensors.py", "ahrag_tpu_torch/graph/beam.py",
-          "ahrag_tpu_torch/bench_data.py", "ahrag_tpu_torch/convert.py", "chip_smoke.py")
+          "ahrag_tpu_torch/bench_data.py", "ahrag_tpu_torch/convert.py", "chip_smoke.py",
+          "ahrag_tpu_torch/agent/featurizer.py", "ahrag_tpu_torch/agent/reward.py",
+          "ahrag_tpu_torch/agent/vec_env.py", "ahrag_tpu_torch/agent/optim.py",
+          "ahrag_tpu_torch/agent/ppo.py", "ahrag_tpu_torch/agent/rl_agent.py",
+          "ahrag_tpu_torch/graph/multi.py")
 PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
 HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
 
