@@ -14,13 +14,22 @@ and nothing of ``ahrag_tpu``.
     ahrag_tpu_torch.graph.beam           multi-level beam-search traversal
     ahrag_tpu_torch.graph.multi          stacked graphs: many-graph search and rollouts
     ahrag_tpu_torch.agent                featurizer, rewards, the batched traversal
-                                         environment (vec_env), PPO, BC, RLPolicyAgent
+                                         environment (vec_env), PPO, BC, RLPolicyAgent;
+                                         GraphEnvironment, the rule/LLM agent and
+                                         InferenceEngine (question answering)
+    ahrag_tpu_torch.answer               fact layer (qa), extractive spans, the
+                                         token-budgeted context, AnswerGenerator
+    ahrag_tpu_torch.baselines            NaiveRAG, the flat baseline
     ahrag_tpu_torch.models.policy.nets   the policy networks (MLPPolicy, ActorCritic)
     ahrag_tpu_torch.models.encoder.hashed  hashed n-gram query encoder
     ahrag_tpu_torch.serve                fused query encode + search, MicroBatcher,
-                                         RetrievalService, serve_http
-    ahrag_tpu_torch.utils                config loader, timers and profiler traces
-    ahrag_tpu_torch.cli                  serve (HTTP) and serve_bench (load test)
+                                         RetrievalService (search, beam, answer),
+                                         serve_http
+    ahrag_tpu_torch.utils                config loader, parse guards, timers and
+                                         profiler traces, session logger, token
+                                         counts, the LLM client manager
+    ahrag_tpu_torch.cli                  serve (HTTP), serve_bench (load test),
+                                         env, agent and answer
     ahrag_tpu_torch.bench_data           synthetic bench corpus and CPU reference search
     ahrag_tpu_torch.convert              state carried across from ``ahrag_tpu`` as numpy
                                          (graph tensors, weights, flax policy params)

@@ -8,7 +8,6 @@ n_actions}`` with CPU tensors, read back with ``weights_only=True``.
 """
 from __future__ import annotations
 
-import json
 import os
 from typing import Callable, Dict, List, Tuple
 
@@ -19,13 +18,7 @@ from ahrag_tpu_torch.agent.optim import Adam
 from ahrag_tpu_torch.agent.vec_env import sample_actions
 from ahrag_tpu_torch.device import resolve_device
 from ahrag_tpu_torch.models.policy.nets import MLPPolicy
-
-
-def _json_or_none(line: str):
-    try:
-        return json.loads(line)
-    except (TypeError, ValueError):
-        return None
+from ahrag_tpu_torch.utils.parse import json_or_none
 
 
 def load_trajectories(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -35,7 +28,7 @@ def load_trajectories(path: str) -> Tuple[np.ndarray, np.ndarray]:
     y: List[int] = []
     with open(path, "r", encoding="utf-8") as f:
         for line in f:
-            obj = _json_or_none(line)
+            obj = json_or_none(line)
             if not isinstance(obj, dict):
                 continue
             for s in obj.get("steps", []):

@@ -42,6 +42,7 @@ from ahrag_tpu_torch.graph.search import SearchWeights, hybrid_search
 from ahrag_tpu_torch.graph.tensors import NODE_TYPE_IDS, GraphTensors, build_graph_tensors
 from ahrag_tpu_torch.models.encoder import create_encoder
 from ahrag_tpu_torch.utils.config import load_config
+from ahrag_tpu_torch.utils.parse import float_or_none, int_or_none, json_or_none
 
 DEFAULT_SEARCH_PARAMS: Dict[str, Any] = {
     "alpha": 0.6, "beta": 0.2, "gamma": 0.1, "delta": 0.1,
@@ -55,32 +56,11 @@ def _sha1(text: str, length: int = 10) -> str:
     return hashlib.sha1(text.encode("utf-8")).hexdigest()[:length]
 
 
-def _json_or_none(text: str) -> Any:
-    try:
-        return json.loads(text)
-    except (TypeError, ValueError):
-        return None
-
-
-def _float_or_none(value: Any) -> Optional[float]:
-    try:
-        return float(value)
-    except (TypeError, ValueError):
-        return None
-
-
-def _int_or_none(value: Any) -> Optional[int]:
-    try:
-        return int(value)
-    except (TypeError, ValueError):
-        return None
-
-
 def _as_obj(value: Any) -> Any:
     """Decode reference-style JSON-string attributes; a string that is not
     JSON stays as it is."""
     if isinstance(value, str):
-        obj = _json_or_none(value)
+        obj = json_or_none(value)
         if obj is None and value.strip(" \t\n\r") != "null":
             return value
         return obj
@@ -344,13 +324,13 @@ class HierarchicalGraph:
     def node_judge_overall(self, node_id: str) -> Optional[float]:
         js = _as_obj(self.nodes.get(node_id, {}).get("judge_scores"))
         if isinstance(js, dict):
-            return _float_or_none(js.get("overall", 0.0))
+            return float_or_none(js.get("overall", 0.0))
         return None
 
     def node_confidence(self, node_id: str) -> Optional[float]:
         d = self.nodes.get(node_id, {})
         c = d.get("confidence", d.get("confidence_score"))
-        return None if c is None else _float_or_none(c)
+        return None if c is None else float_or_none(c)
 
     def node_layer(self, node_id: str) -> int:
         """Level-aware layer: 0 for entities, else the stored level (1 for a
@@ -450,7 +430,7 @@ class HierarchicalGraph:
         meta_path = os.path.join(directory, "meta.json")
         if os.path.exists(meta_path):
             with open(meta_path, "r", encoding="utf-8") as f:
-                meta = _json_or_none(f.read())
+                meta = json_or_none(f.read())
             if isinstance(meta, dict):
                 if isinstance(meta.get("search_params"), dict):
                     hg.search_params = {**hg.search_params, **meta["search_params"]}
@@ -587,7 +567,7 @@ class HierarchicalGraph:
                              top_words=n.get("top_words"), members=n.get("members"),
                              centroid=n.get("centroid"), level=2)
         for l1_tid, l2_tid in (l1_to_l2 or {}).items():
-            a_t, b_t = _int_or_none(l1_tid), _int_or_none(l2_tid)
+            a_t, b_t = int_or_none(l1_tid), int_or_none(l2_tid)
             if a_t is None or b_t is None:
                 continue
             a = self.topic_to_summary_id.get(a_t)
@@ -610,7 +590,7 @@ class HierarchicalGraph:
                                  members=n.get("members"),
                                  centroid=n.get("centroid"), level=level)
             for child_tid, parent_tid in (lvl_map or {}).items():
-                a_t, b_t = _int_or_none(child_tid), _int_or_none(parent_tid)
+                a_t, b_t = int_or_none(child_tid), int_or_none(parent_tid)
                 if a_t is None or b_t is None:
                     continue
                 a = self.topic_to_summary_id.get(a_t)

@@ -8,7 +8,8 @@ Port of ``ahrag_tpu/serve.py``:
 - ``MicroBatcher`` coalesces concurrent single requests into batches and runs
   them through a pipeline of stages in threads;
 - ``RetrievalService`` holds a graph's tensors on its device and answers
-  ``search`` (coalesced), ``search_many`` and ``beam``;
+  ``search`` (coalesced), ``search_many``, ``beam`` and ``answer`` (the
+  agent and answer modules over the same graph);
 - ``serve_http``: JSON endpoints POST /search {"query" | "queries"},
   POST /beam, POST /answer, GET /healthz and GET /stats.
 
@@ -30,6 +31,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ahrag_tpu_torch.agent.agent import AHRAG_Agent
+from ahrag_tpu_torch.agent.environment import GraphEnvironment
+from ahrag_tpu_torch.agent.inference import InferenceEngine
 from ahrag_tpu_torch.device import resolve_device
 from ahrag_tpu_torch.graph.beam import beam_search_batch
 from ahrag_tpu_torch.graph.host import HierarchicalGraph
@@ -547,10 +551,16 @@ class RetrievalService:
         return [self.hg._result_entry(int(i), float(s), 0.0) for i, s, o in rows if o]
 
     def answer(self, query: str, steps: int = 4) -> Dict[str, Any]:
-        """Full QA needs the agent and answer modules, which are not ported."""
-        raise NotImplementedError(
-            "RetrievalService.answer needs the agent and answer modules "
-            "(ROADMAP queue 1 item 5), which are not ported yet")
+        """Full QA for one question: a ``GraphEnvironment`` over the service's
+        graph (session files under ``artifacts/sessions/`` of the working
+        directory, event log off), the rule agent and ``InferenceEngine``.
+        Its searches run one query at a time on the graph's device, outside
+        the micro-batcher."""
+        with self.timers.timed("answer"):
+            env = GraphEnvironment(hg=self.hg, log_level="off")
+            out = InferenceEngine(env, AHRAG_Agent(env)).run_inference(query, steps=steps)
+        return {k: out[k] for k in ("query", "answer", "rationale", "citations",
+                                    "retrieved_nodes", "metrics")}
 
     def stats(self) -> Dict[str, Any]:
         return {"graph": self.hg.stats(), "timers": self.timers.snapshot(),

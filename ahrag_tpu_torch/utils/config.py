@@ -19,6 +19,8 @@ import importlib.util
 import os
 from typing import Any, Dict
 
+from ahrag_tpu_torch.utils.parse import float_or_none
+
 DEFAULT_CONFIG: Dict[str, Any] = {
     "llm": {
         "enabled": False,  # deterministic by default; flip on when provider keys exist
@@ -132,20 +134,13 @@ def _truthy(v: str) -> bool:
     return v.lower() in {"1", "true", "yes"}
 
 
-def _float_or_none(v: str) -> float | None:
-    try:
-        return float(v)
-    except (TypeError, ValueError):
-        return None
-
-
 _ENV_OVERRIDES = {
     "LOG_LEVEL": ("logging.log_level", str),
     "REDACT": ("logging.redact", _truthy),
     "AHRAG_LLM_ENABLED": ("llm.enabled", _truthy),
     "AHRAG_ENCODER": ("encoder.name", str),
     "AHRAG_READER_CKPT": ("answer.reader_ckpt", str),
-    "AHRAG_READER_MIN_CONF": ("answer.reader_min_conf", _float_or_none),
+    "AHRAG_READER_MIN_CONF": ("answer.reader_min_conf", float_or_none),
     "AHRAG_READER_ONLY": ("answer.reader_only", _truthy),
 }
 

@@ -54,7 +54,8 @@ print their wall time:
      64 and 256 sample questions through ``search_many`` (``dense_binmax`` at
      bucket 64, ``dense_binmax2`` at 256) against the same service on the
      CPU and against ``hg.search``, then ``serve_http`` on port 0 (/healthz,
-     /search with one and three queries, /beam, /stats);
+     /search with one and three queries, /beam, /answer for two sample
+     questions, each equal to ``svc.answer``, /stats);
   9. the service at 1M nodes: phase 3's bf16 tensors behind a
      ``RetrievalService(max_batch=512, max_wait_s=0.003)`` with a lazily
      built node table, ``run_load`` at 1, 32 and 256 closed-loop callers x 16
@@ -80,6 +81,20 @@ print their wall time:
      ``rollout_multi`` over 8 stacked graphs, its anchors against each
      graph's own search; a ``torch.profiler`` trace of one B = 512 rollout
      (``traces/agent_1m/``: kernel time, launches, busy share);
+ 11. question answering: the XL dev world (``samples/synth_v4_sharedxl_*``,
+     1,835 titled paragraphs as named entities under topic summaries of 64 and
+     communities of 8: 1,868 nodes) built and indexed by the port on the card,
+     saved and loaded onto the CPU; its 150 dev questions through
+     ``RetrievalService.answer`` on the card and on the CPU (answer, rationale,
+     citations, retrieved nodes, evidence ids and context text equal; a
+     difference passes only as a counted near tie of two scores within 1e-5),
+     with per-answer latency on both, searches per answer, gold containment
+     and token F1, and the card's busy share over 16 warm answers (kernel
+     time in a ``torch.profiler`` trace, ``traces/answer_xl/``, over the wall
+     of the same 16 answers untraced just before); then 32 shared-KB
+     questions over phase 8's graph, card against CPU, with at least one
+     ``dense_binmax`` launch per answer. Session files go to temporary
+     working directories, removed afterwards;
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -93,8 +108,10 @@ the script exits non-zero. Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -748,6 +765,121 @@ def corpus_graph(hg):
     return hg
 
 
+def xl_paragraphs() -> list:
+    """(title, text) of the 1,835 paragraphs of the shared-KB XL dev world."""
+    text = (SAMPLES / "synth_v4_sharedxl_corpus_dev.txt").read_text()
+    out = []
+    for block in text.split("=== ")[1:]:
+        title, body = block.split(" ===", 1)
+        out.append((title.strip(), " ".join(body.split())))
+    return out
+
+
+def xl_questions() -> list:
+    """The 150 questions of the shared-KB XL dev split, as dicts."""
+    path = SAMPLES / "synth_v4_sharedxl_dev.jsonl"
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def xl_graph(hg):
+    """The XL dev world as a graph: each paragraph an entity named by its
+    title with the paragraph as its description, under topic summaries of 64
+    members and communities of 8 topics (1,868 nodes, n_pad under 4,096: the
+    seed stage is the small-corpus float32 product, no kernel)."""
+    paras = xl_paragraphs()
+    titles = [t for t, _ in paras]
+    n_top = -(-len(paras) // 64)
+    ents = [hg.add_entity(t, body, l1_parents={str(i // 64): 1.0})
+            for i, (t, body) in enumerate(paras)]
+    for t in range(n_top):
+        s = hg.add_summary(t, f"Topic {t}", " ".join(b for _, b in paras[64 * t:64 * t + 2]),
+                           members=titles[64 * t:64 * t + 64])
+        for e in ents[64 * t:64 * t + 64]:
+            hg.add_belongs_to(e, s)
+    for c in range(-(-n_top // 8)):
+        tops = range(8 * c, min(8 * c + 8, n_top))
+        s = hg.add_summary(n_top + c, f"Community {c}", f"topics {8 * c} to {tops[-1]}",
+                           members=[f"sum:{t}" for t in tops], level=2)
+        for t in tops:
+            hg.add_belongs_to(f"sum:{t}", s)
+    return hg
+
+
+@contextlib.contextmanager
+def scratch_cwd():
+    """Work in a fresh temporary directory, removed afterwards: the answer path
+    writes each answer's session files under ``artifacts/sessions/`` of the
+    working directory, and finds no ``configs/ahrag.yaml`` there (the defaults,
+    as on a machine without PyYAML)."""
+    import tempfile
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        yield tmp
+        os.chdir(old)
+
+
+ANSWER_KEYS = ("query", "answer", "rationale", "citations", "retrieved_nodes")
+
+
+def same_answer(a: dict, b: dict) -> bool:
+    """Two ``RetrievalService.answer`` results equal but for ``metrics.time_s``."""
+    def strip(x):
+        return {**x, "metrics": {k: v for k, v in x["metrics"].items() if k != "time_s"}}
+    return strip(a) == strip(b)
+
+
+def answer_record(svc, query: str) -> dict:
+    """``svc.answer(query)``'s fields with the evidence ids and the context text
+    of the full record its session saved (``answer.json``)."""
+    sessions = Path("artifacts/sessions")
+    before = set(os.listdir(sessions)) if sessions.exists() else set()
+    out = svc.answer(query)
+    new = set(os.listdir(sessions)) - before
+    check(len(new) == 1, f"one new session per answer: {new}")
+    rec = json.loads((sessions / new.pop() / "answer.json").read_text())
+    return {**{k: out[k] for k in ANSWER_KEYS},
+            "evidence": [e["node_id"] for key in ("summaries", "entities")
+                         for e in rec["evidence"][key]],
+            "context_text": rec["context"]["context_text"]}
+
+
+def near_tie(card_hg, cpu_hg, query: str, tol: float = 1e-5) -> bool:
+    """Whether a card/CPU difference on ``query`` comes from a near tie: a
+    search the answer path makes (the anchor, top_k 5; the rescue, top_k 96)
+    ranks other rows on the two devices, and at every rank where they differ
+    the two devices' raw scores lie within ``tol`` of each other (two rows
+    whose scores agree to ``tol`` traded places)."""
+    from ahrag_tpu_torch.graph.search import hybrid_search
+    for top_k in (5, 96):
+        res = []
+        for hg in (card_hg, cpu_hg):
+            gt = hg.tensors()
+            q = hg.encode_query_device([query])[0].to(gt.device)
+            r = hybrid_search(gt, q, hg._resolve_weights(), top_k=top_k, member_top_m=5)
+            res.append((r.reranked_idx.tolist(), r.reranked_score.tolist()))
+        (ci, cs), (pi, ps) = res
+        if ci != pi:
+            return all(abs(cs[k] - ps[k]) <= tol for k in range(len(ci)) if ci[k] != pi[k])
+    return False
+
+
+def token_f1(pred: str, golds: list) -> float:
+    """The best SQuAD-style token F1 of ``pred`` against any gold answer."""
+    import re
+    from collections import Counter
+
+    def toks(x):
+        return re.sub(r"\b(a|an|the)\b", " ", re.sub(r"[^\w\s]", " ", x.lower())).split()
+    best = 0.0
+    for g in golds:
+        p, t = toks(pred or ""), toks(g)
+        common = sum((Counter(p) & Counter(t)).values())
+        if common:
+            best = max(best, 2 * common / (len(p) + len(t)))
+    return best
+
+
 def http_json(base: str, path: str, obj=None) -> tuple:
     """(status, JSON body) of a GET (``obj`` None) or a JSON POST."""
     import urllib.request
@@ -821,15 +953,23 @@ def phase_host_graph(dev) -> dict:
     three = http_json(base, "/search", {"queries": qs[:3]})
     beam = http_json(base, "/beam", {"query": qs[0], "beam_width": 8, "depth": 3,
                                      "top_k": 10})
+    with scratch_cwd():          # the answers' session files go to a directory removed after
+        reset_counts()
+        answers = [http_json(base, "/answer", {"query": q}) for q in qs[:2]]
+        answer_counts = read_counts()
+        want_answers = [svc.answer(q) for q in qs[:2]]
     stats = http_json(base, "/stats")
     server.shutdown()
     server.server_close()
     thread.join(timeout=30)
     want_beam = [r["node_id"] for r in svc.beam(qs[0], beam_width=8, depth=3, top_k=10)]
-    statuses = [health[0], one[0], three[0], beam[0], stats[0]]
-    log(f"  HTTP /healthz /search(1) /search(3) /beam /stats: {statuses}; beam ids "
-        f"{[r['node_id'] for r in beam[1]['results']][:4]}...")
-    check(statuses == [200] * 5 and health[1]["nodes"] == 4122, f"HTTP statuses {statuses}")
+    statuses = [health[0], one[0], three[0], beam[0], *(a[0] for a in answers), stats[0]]
+    log(f"  HTTP /healthz /search(1) /search(3) /beam /answer(2) /stats: {statuses}; beam ids "
+        f"{[r['node_id'] for r in beam[1]['results']][:4]}...; answers "
+        f"{[a[1]['answer'] for a in answers]}, launches {answer_counts}")
+    check(statuses == [200] * 7 and health[1]["nodes"] == 4122, f"HTTP statuses {statuses}")
+    for (_, got), want in zip(answers, want_answers):
+        check(same_answer(got, want), f"HTTP /answer differs from svc.answer: {got} {want}")
     check(result_ids(one[1]["results"]) == result_ids(card64[:1]), "HTTP /search one query")
     check(result_ids(three[1]["results"]) == result_ids(card64[:3]), "HTTP /search three")
     check([r["node_id"] for r in beam[1]["results"]] == want_beam and want_beam,
@@ -837,8 +977,10 @@ def phase_host_graph(dev) -> dict:
     check("search_finalize" in stats[1]["timers"], "HTTP /stats timers")
     svc.close()
     svc_cpu.close()
-    return {"index_s": index_s, "launches": counts, "n_pad": n_pad,
-            "search_many_ms": {"64": (t64 - t0) * 1e3, "256": (t256 - t64) * 1e3}}
+    return {"index_s": index_s, "launches": counts, "answer_launches": answer_counts,
+            "n_pad": n_pad,
+            "search_many_ms": {"64": (t64 - t0) * 1e3, "256": (t256 - t64) * 1e3}}, \
+        loaded, svc_cpu.hg
 
 
 class LazyNodes(dict):
@@ -1283,6 +1425,153 @@ def phase_agent(dev, r1, gt_cpu, smi: str) -> dict:
     return {"launches": launches, "times": times, "rollouts": rollouts, "curve": curve}
 
 
+HOST_GRAPH_QUESTIONS = 32      # answers over phase 8's graph (the kernel path)
+
+
+def timed_answers(svc, queries) -> tuple:
+    """(answer records, host ms per answer) of ``queries`` through ``svc``;
+    each answer ends in host reads of its searches' results."""
+    out, ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        out.append(answer_record(svc, q))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def compare_answers(what, card, cpu, queries, card_hg, cpu_hg) -> int:
+    """Card answers against CPU answers, field by field. A question whose
+    answers differ passes only as a near tie (``near_tie``), and is counted;
+    any other difference fails. Returns the count of near ties."""
+    ties = 0
+    for q, a, b in zip(queries, card, cpu):
+        if a != b:
+            diff = [k for k in a if a[k] != b[k]]
+            check(near_tie(card_hg, cpu_hg, q),
+                  f"{what}: card and CPU differ in {diff} on {q!r}, not at a near tie")
+            ties += 1
+    return ties
+
+
+def pcts(ms) -> dict:
+    import numpy as np
+    return {"p50_ms": float(np.percentile(ms, 50)), "p95_ms": float(np.percentile(ms, 95)),
+            "max_ms": float(max(ms)), "mean_ms": float(np.mean(ms)), "n": len(ms)}
+
+
+def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
+    """Question answering on the card. The XL dev world (``xl_graph``, 1,868
+    nodes) built and indexed by the port on the card, saved and loaded onto the
+    CPU; its 150 dev questions through ``RetrievalService.answer`` on the card
+    and on the CPU, answer, rationale,
+    citations, retrieved nodes, evidence ids and context text equal; per-answer
+    latency, searches per answer, gold containment and token F1; the card's
+    busy share over 16 warm answers: kernel time in a ``torch.profiler`` trace
+    (``traces/answer_xl/``) over the wall of the same answers untraced. Then ``HOST_GRAPH_QUESTIONS`` shared-KB questions
+    over phase 8's 4,122-node graph, card against CPU, whose one-query
+    searches go through ``dense_binmax``. Returns the launch counts of the
+    card's answers (the main path)."""
+    import tempfile
+    import torch
+    from ahrag_tpu_torch.graph import HierarchicalGraph
+    from ahrag_tpu_torch.serve import RetrievalService
+    from ahrag_tpu_torch.utils import profiling
+    items = xl_questions()
+    qs = [it["question"] for it in items]
+    t0 = time.perf_counter()
+    xl = xl_graph(HierarchicalGraph(encoder_name="hashed", device=dev))
+    xl.build_vector_index(layers=(0, 1, 2))
+    index_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        xl.save(tmp)
+        xl_cpu = HierarchicalGraph.load(tmp, device="cpu")
+    svc, svc_cpu = RetrievalService(hg=xl, device=dev), RetrievalService(hg=xl_cpu,
+                                                                          device="cpu")
+    n_pad = svc.gt.n_pad
+    log(f"  XL world: {xl.number_of_nodes()} nodes (n_pad {n_pad}), built and indexed "
+        f"on the card in {index_s:.1f}s, saved and loaded onto the CPU")
+    check(xl.number_of_nodes() == 1868 and n_pad < 4096, "XL graph size")
+    searches = [0]
+    inner = xl.search
+
+    def counted_search(*a, **kw):
+        searches[0] += 1
+        return inner(*a, **kw)
+    xl.search = counted_search
+    with scratch_cwd():
+        reset_counts()
+        card, card_ms = timed_answers(svc, qs)
+        xl_counts = read_counts()
+        n_search = searches[0]
+        cpu, cpu_ms = timed_answers(svc_cpu, qs)
+        ties = compare_answers("XL", card, cpu, qs, xl, xl_cpu)
+        logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "traces",
+                              "answer_xl")
+
+        def sixteen_answers():
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            for q in qs[:16]:
+                svc.answer(q)
+            torch.cuda.synchronize(dev)
+            return (time.perf_counter() - t1) * 1e3
+
+        # the busy share divides the trace's kernel time by the wall of the
+        # same warm work untraced (the first pass above also built the graph's
+        # coverage index)
+        untraced_ms = sixteen_answers()
+        with profiling.trace(logdir) as prof:
+            traced_ms = sixteen_answers()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    gold = sum(any(g.lower() in (a["answer"] or "").lower() for g in it["answers"])
+               for a, it in zip(card, items))
+    f1 = sum(token_f1(a["answer"], it["answers"]) for a, it in zip(card, items)) / len(items)
+    check(all(a["answer"] and a["context_text"] for a in card), "every XL answer non-empty")
+    check(device_ms > 0, "the trace of 16 answers saw device work")
+    log(f"  {len(qs)} XL answers on the card and on the CPU: card == CPU "
+        f"({ties} near ties); per answer card {json.dumps(pcts(card_ms))}, CPU "
+        f"{json.dumps(pcts(cpu_ms))}; {n_search / len(qs):.2f} searches per answer; "
+        f"gold contained {gold}/{len(items)}, token F1 {f1:.3f}; launches {xl_counts}")
+    log(f"  16 answers: {untraced_ms:.1f} ms untraced, {traced_ms:.1f} ms traced "
+        f"({logdir}), kernels {device_ms:.2f} ms in {sum(e.count for e in kern)} launches: "
+        f"the card busy {device_ms / untraced_ms:.2%} of the untraced wall "
+        f"({device_ms / traced_ms:.2%} of the traced); first pass over the same 16 "
+        f"{sum(card_ms[:16]):.1f} ms; top "
+        f"{json.dumps([[e.key[:50], round(e.self_device_time_total / 1e3, 3), e.count] for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]])}")
+    svc.close()
+    svc_cpu.close()
+
+    host_qs = sample_questions(HOST_GRAPH_QUESTIONS)
+    hsvc = RetrievalService(hg=host_hg, device=dev)
+    hsvc_cpu = RetrievalService(hg=host_hg_cpu, device="cpu")
+    with scratch_cwd():
+        reset_counts()
+        hcard, hcard_ms = timed_answers(hsvc, host_qs)
+        host_counts = read_counts()
+        hcpu, hcpu_ms = timed_answers(hsvc_cpu, host_qs)
+    host_ties = compare_answers("host graph", hcard, hcpu, host_qs, host_hg, host_hg_cpu)
+    hsvc.close()
+    hsvc_cpu.close()
+    log(f"  {len(host_qs)} shared-KB answers over phase 8's graph (n_pad "
+        f"{host_hg.tensors().n_pad}): card == CPU ({host_ties} near ties); per answer card "
+        f"{json.dumps(pcts(hcard_ms))}, CPU {json.dumps(pcts(hcpu_ms))}; launches "
+        f"{host_counts}")
+    check(host_counts["binmax_cuda"] >= len(host_qs),
+          f"at least one dense_binmax launch per answer: {host_counts}")
+    launches = {k: xl_counts[k] + host_counts[k] for k in xl_counts}
+    return {"launches": launches, "xl": {
+        "nodes": xl.number_of_nodes(), "n_pad": n_pad, "index_s": index_s,
+        "card": pcts(card_ms), "cpu": pcts(cpu_ms),
+        "near_ties": ties, "searches_per_answer": n_search / len(qs),
+        "gold_contained": gold, "token_f1": f1, "questions": len(qs),
+        "trace": {"untraced_ms": untraced_ms, "traced_ms": traced_ms,
+                  "first_pass_ms": sum(card_ms[:16]),
+                  "device_ms": device_ms, "busy_share": device_ms / untraced_ms}},
+        "host_graph": {"card": pcts(hcard_ms), "cpu": pcts(hcpu_ms),
+                       "near_ties": host_ties, "launches": host_counts}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1437,7 +1726,7 @@ def main() -> int:
 
     t = time.perf_counter()
     log("phase 8: a host graph of the sample corpus, indexed, saved, loaded and served")
-    hosted = phase_host_graph(dev)
+    hosted, host_hg, host_hg_cpu = phase_host_graph(dev)
     check(hosted["launches"]["binmax_cuda"] > 0 and hosted["launches"]["binmax2_cuda"] > 0,
           f"both bin-max kernels on the service path: {hosted['launches']}")
     log(f"phase 8 done in {time.perf_counter() - t:.1f}s")
@@ -1457,9 +1746,18 @@ def main() -> int:
           f"both bin-max kernels on the agent's path: {agent['launches']}")
     log(f"phase 10 done in {time.perf_counter() - t:.1f}s")
 
+    t = time.perf_counter()
+    log("phase 11: answers on the card: the XL dev world and phase 8's graph")
+    answered = phase_answers(dev, host_hg, host_hg_cpu)
+    check(answered["launches"]["binmax_cuda"] > 0,
+          f"dense_binmax on the answer path: {answered['launches']}")
+    answered["wall_s"] = time.perf_counter() - t
+    log(f"phase 11 done in {answered['wall_s']:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
-                   + hosted["launches"][k] + loaded["launches"][k] + agent["launches"][k]
+                   + hosted["launches"][k] + hosted["answer_launches"][k]
+                   + loaded["launches"][k] + agent["launches"][k] + answered["launches"][k]
                    for k in rows}
     kernels = []
     for name, source, replaces in (
@@ -1490,7 +1788,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

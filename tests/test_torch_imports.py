@@ -18,6 +18,16 @@ AGENT_MODULES = ("ahrag_tpu_torch.agent.featurizer", "ahrag_tpu_torch.agent.rewa
                  "ahrag_tpu_torch.agent.ppo", "ahrag_tpu_torch.agent.bc",
                  "ahrag_tpu_torch.agent.rl_agent", "ahrag_tpu_torch.models.policy.nets",
                  "ahrag_tpu_torch.graph.multi")
+# the answer path: each must be found and imported by the guard below
+ANSWER_MODULES = ("ahrag_tpu_torch.utils.logging", "ahrag_tpu_torch.utils.tokens",
+                  "ahrag_tpu_torch.utils.llm", "ahrag_tpu_torch.utils.parse",
+                  "ahrag_tpu_torch.answer", "ahrag_tpu_torch.answer.qa",
+                  "ahrag_tpu_torch.answer.extractive", "ahrag_tpu_torch.answer.context",
+                  "ahrag_tpu_torch.answer.generator", "ahrag_tpu_torch.agent.environment",
+                  "ahrag_tpu_torch.agent.agent", "ahrag_tpu_torch.agent.inference",
+                  "ahrag_tpu_torch.baselines", "ahrag_tpu_torch.baselines.naive",
+                  "ahrag_tpu_torch.cli.answer", "ahrag_tpu_torch.cli.agent",
+                  "ahrag_tpu_torch.cli.env")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -32,6 +42,12 @@ for m in mods:
 missing = set({agent!r}) - set(mods)
 assert not missing, missing
 import chip_smoke
+import json, os, tempfile
+from ahrag_tpu_torch.agent.environment import GraphEnvironment
+from ahrag_tpu_torch.cli import agent as cli_agent, answer as cli_answer, env as cli_env
+os.chdir(tempfile.mkdtemp())          # anything an entry point writes lands here
+with open("ev.json", "w") as f:
+    json.dump({{"summaries": [], "entities": []}}, f)
 import numpy as np
 from ahrag_tpu_torch.graph.tensors import build_graph_tensors
 from ahrag_tpu_torch.graph.search import SearchWeights
@@ -47,7 +63,12 @@ calls = [lambda: PPOLearner(84, 6), lambda: ActorCritic(84), lambda: MLPPolicy(8
          lambda: bench_tensors(build_bench_arrays(64, 8, d=8), "float32"),
          lambda: HierarchicalGraph(encoder_name="hashed").tensors(),
          lambda: HierarchicalGraph.load("graph_that_is_not_there"),
-         lambda: RetrievalService(graph_dir="graph_that_is_not_there")]
+         lambda: RetrievalService(graph_dir="graph_that_is_not_there"),
+         lambda: GraphEnvironment(graph_dir="graph_that_is_not_there"),
+         lambda: cli_env.main(["q", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_agent.main(["q", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_answer.main(["q", "--evidence", "ev.json",
+                                  "--graph", "graph_that_is_not_there"])]
 for fn in calls:
     try:
         fn()
@@ -55,6 +76,7 @@ for fn in calls:
         assert "CUDA" in str(e), e
     else:
         raise AssertionError("an entry point ran without a card and without device='cpu'")
+assert os.listdir(".") == ["ev.json"], os.listdir(".")   # refused before writing
 print("imported", len(mods), "modules")
 """
 
@@ -67,7 +89,7 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
-    proc = _run(_GUARD.format(blocked=BLOCKED, agent=AGENT_MODULES), ROOT)
+    proc = _run(_GUARD.format(blocked=BLOCKED, agent=AGENT_MODULES + ANSWER_MODULES), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
@@ -137,9 +159,19 @@ NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/mo
           "ahrag_tpu_torch/agent/featurizer.py", "ahrag_tpu_torch/agent/reward.py",
           "ahrag_tpu_torch/agent/vec_env.py", "ahrag_tpu_torch/agent/optim.py",
           "ahrag_tpu_torch/agent/ppo.py", "ahrag_tpu_torch/agent/rl_agent.py",
-          "ahrag_tpu_torch/graph/multi.py")
+          "ahrag_tpu_torch/agent/bc.py", "ahrag_tpu_torch/graph/multi.py",
+          "ahrag_tpu_torch/graph/host.py", "ahrag_tpu_torch/utils/config.py",
+          "ahrag_tpu_torch/utils/logging.py", "ahrag_tpu_torch/utils/tokens.py",
+          "ahrag_tpu_torch/answer/", "ahrag_tpu_torch/agent/environment.py",
+          "ahrag_tpu_torch/agent/agent.py", "ahrag_tpu_torch/agent/inference.py",
+          "ahrag_tpu_torch/baselines/", "ahrag_tpu_torch/cli/answer.py",
+          "ahrag_tpu_torch/cli/agent.py", "ahrag_tpu_torch/cli/env.py")
 PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
 HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
+# the LLM client's network retry: the one scope where catching any error is
+# the function's purpose, and what its handler may call
+RETRY_SCOPE = ["LLMClientManager", "_complete"]
+RETRY_CALLS = {"_is_rate_limit_error", "max", "float", "random.uniform", "time.sleep"}
 
 
 def _dotted(node) -> str:
@@ -193,6 +225,25 @@ def _is_hand_off(t: ast.Try, scopes) -> bool:
     return True
 
 
+def _is_network_retry(t: ast.Try, scopes) -> bool:
+    """(c) inside ``LLMClientManager._complete``: the body is one assignment
+    from ``client.chat.completions.create``, and each handler only records
+    the error, computes a wait and sleeps, then retries or stops. No handler
+    returns, so a failure reaches the caller as the error itself."""
+    body = t.body[0] if len(t.body) == 1 else None
+    if not (scopes[-2:] == RETRY_SCOPE and isinstance(body, ast.Assign)
+            and isinstance(body.value, ast.Call)
+            and _dotted(body.value.func) == "client.chat.completions.create"):
+        return False
+    for h in t.handlers:
+        for sub in ast.walk(h):
+            if isinstance(sub, ast.Return):
+                return False
+            if isinstance(sub, ast.Call) and _dotted(sub.func) not in RETRY_CALLS:
+                return False
+    return True
+
+
 def try_faults(source: str, no_try: bool = False) -> list:
     """Every ``try`` of ``source`` that breaks the port's rule, as strings."""
     faults = []
@@ -212,8 +263,10 @@ def try_faults(source: str, no_try: bool = False) -> list:
                     if (name.endswith("_ref") or name.split(".")[-1] in ("cpu", "to")
                             or (isinstance(sub, ast.Constant) and sub.value == "cpu")):
                         faults.append(f"{where}: the handler falls back ({ast.unparse(sub)})")
-            if not (_is_parse_guard(node) or _is_hand_off(node, scopes)):
-                faults.append(f"{where}: neither a parse guard nor a hand-off")
+            if not (_is_parse_guard(node) or _is_hand_off(node, scopes)
+                    or _is_network_retry(node, scopes)):
+                faults.append(f"{where}: neither a parse guard, a hand-off nor the "
+                              "network retry")
         inner = scopes + [node.name] if isinstance(
             node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) else scopes
         for child in ast.iter_child_nodes(node):
@@ -226,10 +279,11 @@ def try_faults(source: str, no_try: bool = False) -> list:
 def test_no_try_in_the_port():
     """No kernel falls back to its plain version, and no native call to
     Python, on failure: no ``try`` at all in the kernels, the native code, the
-    models and the search path; elsewhere only a parse guard (``float``,
-    ``int`` or ``json`` parsing that yields a constant on (TypeError,
-    ValueError)) or a hand-off of a batch's exception to its submitters or to
-    an HTTP error response. No bare ``except``, no ``finally``, and no handler
+    models, the search path and the agent and answer modules; elsewhere only a
+    parse guard (``float``, ``int`` or ``json`` parsing that yields a constant
+    on (TypeError, ValueError)), a hand-off of a batch's exception to its
+    submitters or to an HTTP error response, or the LLM client's network
+    retry. No bare ``except``, no ``finally``, and no handler
     that calls a ``*_ref`` function, names "cpu" or moves a tensor."""
     for path in PORT_FILES:
         rel = str(path.relative_to(ROOT))
@@ -267,6 +321,40 @@ def parse(x):
     except:
         return None
 """,
+    "the LLM retry answers from its handler": """
+class LLMClientManager:
+    def _complete(self, client):
+        for attempt in range(3):
+            try:
+                resp = client.chat.completions.create(model="m")
+            except Exception as exc:
+                return "canned answer", None
+""",
+    "the LLM retry falls back to a plain version": """
+class LLMClientManager:
+    def _complete(self, client, q, emb):
+        try:
+            resp = client.chat.completions.create(model="m")
+        except Exception as exc:
+            last = dense_binmax_ref(q, emb)
+""",
+    "the LLM retry moves to the CPU": """
+class LLMClientManager:
+    def _complete(self, client, x):
+        try:
+            resp = client.chat.completions.create(model="m")
+        except Exception as exc:
+            x = x.to("cpu")
+            time.sleep(1.0)
+""",
+    "a retry shape outside the LLM client": """
+class RetrievalService:
+    def _complete(self, client):
+        try:
+            resp = client.chat.completions.create(model="m")
+        except Exception as exc:
+            time.sleep(1.0)
+""",
     "finally": """
 class MicroBatcher:
     def _run(self):
@@ -301,6 +389,23 @@ class MicroBatcher:
             except Exception as exc:
                 self._publish(gen, len(batch), ("err", exc))
                 continue
+
+class LLMClientManager:
+    def _complete(self, client, attempts, cfg):
+        last_error = None
+        for attempt in range(1, attempts + 1):
+            try:
+                resp = client.chat.completions.create(model="m")
+            except Exception as exc:
+                last_error = exc
+                if attempt >= attempts:
+                    break
+                wait = cfg["rate_limit_wait"] if _is_rate_limit_error(exc) else 1.0
+                wait = max(0.0, float(wait)) * attempt + random.uniform(0, 0.1)
+                time.sleep(wait)
+                continue
+            return resp, None
+        return None, last_error
 """
     assert try_faults(ok) == []
     assert try_faults(ok, no_try=True)

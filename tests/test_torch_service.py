@@ -2,7 +2,7 @@
 
 Every MicroBatcher scenario of ``tests/test_serve.py`` runs against the port's
 class (the JAX test functions, with the class they use swapped), and so do the
-service scenarios that ask nothing of ``answer``. The service on the film graph
+service scenarios, ``answer`` and ``/answer`` included. The service on the film graph
 (``device="cpu"``) is held against ``hg.search`` and against the JAX
 ``RetrievalService`` on the same saved graph: ids equal, scores within 1e-4
 (the result entries round to four decimals).
@@ -43,6 +43,8 @@ BATCHER_SCENARIOS = [
     "test_microbatcher_mid_stage_workers",
 ]
 SERVICE_SCENARIOS = [
+    "test_service_search_and_answer",
+    "test_http_endpoints",
     "test_concurrent_search_consistency",
     "test_fused_serving_path_matches_host_search",
     "test_serving_thread_safety_stress",
@@ -85,7 +87,8 @@ def test_port_microbatcher_passes_the_jax_scenario(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", SERVICE_SCENARIOS)
-def test_port_service_passes_the_jax_scenario(name, service, monkeypatch):
+def test_port_service_passes_the_jax_scenario(name, service, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)            # answers write their session files here
     monkeypatch.setattr(jtests, "serve_http", tserve.serve_http)
     fn = getattr(jtests, name)
     if name == "test_http_timeout_maps_to_503":
@@ -106,7 +109,8 @@ def test_microbatcher_reports_a_stage_that_returns_no_sequence():
     mb2.close()
 
 
-def test_search_search_many_warmup_labels_and_answer(service):
+def test_search_search_many_warmup_labels_and_answer(service, saved_film, tmp_path,
+                                                     monkeypatch):
     one = service.search("Who directed Ed Wood?")
     many = service.search_many(QUERIES)
     assert one == many[0] and len(many) == len(QUERIES)
@@ -117,8 +121,20 @@ def test_search_search_many_warmup_labels_and_answer(service):
     assert "search_batch" in service.stats()["timers"]
     stats = service.stats()
     assert stats["graph"]["n_nodes"] == 10 and "request" in stats["latency"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        service.answer("Who directed Ed Wood?")
+    # answer (the agent and answer modules over the service's graph) gives the
+    # JAX service's answer, rationale, citations and retrieved nodes; its
+    # session files go under the working directory
+    from ahrag_tpu.graph import HierarchicalGraph as JHG
+    monkeypatch.chdir(tmp_path)
+    jsvc = JRS(hg=JHG.load(saved_film), max_wait_s=0.002)
+    keys = ("query", "answer", "rationale", "citations", "retrieved_nodes")
+    for q in QUERIES[:3]:
+        got, want = service.answer(q), jsvc.answer(q)
+        assert set(got) == {*keys, "metrics"} and got["answer"] and got["retrieved_nodes"]
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert "answer" in service.stats()["timers"]
+    assert len(list((tmp_path / "artifacts" / "sessions").iterdir())) == 6
+    jsvc.close()
 
 
 def test_fused_path_equals_host_search(service):
@@ -159,7 +175,8 @@ def _post_error(base, path, obj, raw=None):
     return ei.value.code
 
 
-def test_http_endpoints(service):
+def test_http_endpoints(service, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)            # /answer writes its session files here
     server = tserve.serve_http(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -175,13 +192,17 @@ def test_http_endpoints(service):
                                          "depth": 2, "top_k": 5})
     assert status == 200 and ids(body["results"]) == ids(
         service.beam(QUERIES[0], beam_width=4, depth=2, top_k=5))
+    status, body = _post(base, "/answer", {"query": QUERIES[0], "steps": 3})
+    want = service.answer(QUERIES[0], steps=3)
+    assert status == 200 and {k: v for k, v in body.items() if k != "metrics"} == \
+        {k: v for k, v in want.items() if k != "metrics"}
     with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
         assert r.status == 200 and "search_finalize" in json.loads(r.read())["timers"]
     assert _post_error(base, "/search", None, raw=b"{not json") == 400
     assert _post_error(base, "/search", {"queries": []}) == 400
     assert _post_error(base, "/beam", {}) == 400
     assert _post_error(base, "/nowhere", {"query": "x"}) == 404
-    assert _post_error(base, "/answer", {"query": "Who directed Ed Wood?"}) == 500
+    assert _post_error(base, "/answer", {}) == 400
     server.shutdown()
     server.server_close()
     thread.join(timeout=10)
