@@ -6,7 +6,9 @@ obvious counterpart, and is tested against it on the same inputs
 and nothing of ``ahrag_tpu``.
 
     ahrag_tpu_torch.device               device selection, precision policy, stable top-k
+    ahrag_tpu_torch.schema               the pipeline's data contracts (plain dataclasses)
     ahrag_tpu_torch.ops.binmax           the hand-written CUDA bin-max kernels
+    ahrag_tpu_torch.ops.kmeans           spherical k-means (the build-time clustering)
     ahrag_tpu_torch.ops.topk             certified exact top-k around those kernels
     ahrag_tpu_torch.graph.tensors        GraphTensors and build_graph_tensors
     ahrag_tpu_torch.graph.search         batched hybrid search
@@ -14,12 +16,18 @@ and nothing of ``ahrag_tpu``.
     ahrag_tpu_torch.graph.beam           multi-level beam-search traversal
     ahrag_tpu_torch.graph.multi          stacked graphs: many-graph search and rollouts
     ahrag_tpu_torch.agent                featurizer, rewards, the batched traversal
-                                         environment (vec_env), PPO, BC, RLPolicyAgent;
+                                         environment (vec_env), PPO, BC, RLPolicyAgent,
+                                         per-question fleets;
                                          GraphEnvironment, the rule/LLM agent and
                                          InferenceEngine (question answering)
     ahrag_tpu_torch.answer               fact layer (qa), extractive spans, the
                                          token-budgeted context, AnswerGenerator
     ahrag_tpu_torch.baselines            NaiveRAG, the flat baseline
+    ahrag_tpu_torch.extract              chunking and hypergraph extraction
+    ahrag_tpu_torch.aggregate            SemanticAggregator: topics, summaries, relations,
+                                         communities
+    ahrag_tpu_torch.eval                 SQuAD F1/EM, the rule judges, AnswerEvaluator,
+                                         recall@k
     ahrag_tpu_torch.models.policy.nets   the policy networks (MLPPolicy, ActorCritic)
     ahrag_tpu_torch.models.encoder.hashed  hashed n-gram query encoder
     ahrag_tpu_torch.serve                fused query encode + search, MicroBatcher,
@@ -29,7 +37,8 @@ and nothing of ``ahrag_tpu``.
                                          profiler traces, session logger, token
                                          counts, the LLM client manager
     ahrag_tpu_torch.cli                  serve (HTTP), serve_bench (load test),
-                                         env, agent and answer
+                                         env, agent, answer, demo (the build
+                                         pipeline), benchmark and eval_gate
     ahrag_tpu_torch.bench_data           synthetic bench corpus and CPU reference search
     ahrag_tpu_torch.convert              state carried across from ``ahrag_tpu`` as numpy
                                          (graph tensors, weights, flax policy params)

@@ -20,11 +20,12 @@ package's:
 Query projection. A graph indexed with the default ``fit_lsa=True`` stores its
 LSA basis, and queries are projected through it in either package. Without
 one, the documents were projected through the hashed encoder's Gaussian,
-which the JAX package draws from ``jax.random`` and the port from a
-``torch.Generator``: the two differ. ``load`` therefore refuses a saved graph
-with embeddings but no ``lsa`` unless the caller passes the projection the
-documents were built with (``convert.projection_from_numpy``); a graph the
-port indexed itself is consistent with its own Gaussian.
+which the JAX package draws from ``jax.random`` and the port reproduces
+without JAX only to within 6e-6 relatively (``utils/jax_random.normal``).
+``load`` therefore refuses a saved graph with embeddings but no ``lsa``
+unless the caller passes the projection the documents were built with
+(``convert.projection_from_numpy``); a graph the port indexed itself is
+consistent with its own Gaussian.
 """
 from __future__ import annotations
 
@@ -454,8 +455,9 @@ class HierarchicalGraph:
                 raise ValueError(
                     f"{emb_path} holds embeddings but no 'lsa' basis: its documents "
                     "were projected through the encoder's Gaussian, which the JAX "
-                    "package draws from jax.random and this package from a "
-                    "torch.Generator, so queries would land in another space. Pass "
+                    "package draws from jax.random and this package reproduces only "
+                    "to within 6e-6 relatively, so queries would not rank exactly as "
+                    "the documents were built. Pass "
                     "the documents' projection (projection=..., e.g. from "
                     "convert.projection_from_numpy), or rebuild the index "
                     "(build_vector_index(reset=True)) after loading without "

@@ -9,10 +9,12 @@ Features are lowercased word unigrams and bigrams plus character 3..5-grams
 (weighted by ``cgram_weight``), hashed with FNV-1a 64. The port's copy of the
 threaded C++ featurizer (``ahrag_tpu_torch.native``) computes them on every
 path; ``_count_matrix`` is the same featurizer in Python, kept as the plain
-version the tests hold the native one against. The projection is a seeded
-Gaussian from a ``torch.Generator``; it differs from the JAX package's
-``jax.random`` draw, so state that must match is carried across with
-``convert.projection_from_numpy``. Corpus statistics (IDF, the LSA basis,
+version the tests hold the native one against. The projection is the JAX
+package's seeded Gaussian, ``jax.random.normal(PRNGKey(seed), (buckets,
+dim)) / sqrt(dim)``, drawn without JAX by ``utils/jax_random.py`` (its
+uniforms to the bit, its ``erf_inv`` within 6e-6 relatively), so the same
+text embeds to the same entity embeddings and clusters in both packages.
+Corpus statistics (IDF, the LSA basis,
 bucket associations) are numpy arrays, as in the JAX package; their matrix
 products run in float32 on the encoder's device.
 """
@@ -27,6 +29,7 @@ import torch
 
 from ahrag_tpu_torch import native
 from ahrag_tpu_torch.device import resolve_device
+from ahrag_tpu_torch.utils import jax_random
 
 _WORD_RE = re.compile(r"[a-z0-9]+")
 
@@ -72,9 +75,9 @@ def _project_normalize(counts: torch.Tensor, proj: torch.Tensor,
 def _project_normalize_sparse(rows: torch.Tensor, cols: torch.Tensor,
                               vals: torch.Tensor, proj: torch.Tensor,
                               idf: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """COO variant: scatter-add the counts on the device, then project.
-    Padding entries point at an extra dump row ``n_rows``."""
-    counts = torch.zeros((n_rows + 1, proj.shape[0]), dtype=torch.float32,
+    """COO variant: scatter-add the counts on the device, then project, in
+    ``proj``'s type. Padding entries point at an extra dump row ``n_rows``."""
+    counts = torch.zeros((n_rows + 1, proj.shape[0]), dtype=proj.dtype,
                          device=proj.device)
     counts.index_put_((rows, cols), vals, accumulate=True)
     return _project_normalize(counts[:n_rows], proj, idf)
@@ -93,9 +96,9 @@ class HashedNGramEncoder:
         self.seed = seed
         self.cgram_weight = float(cgram_weight)
         self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        self._proj = (torch.randn((buckets, dim), generator=gen, dtype=torch.float32)
-                      / math.sqrt(dim)).to(self.device)
+        self._proj = torch.from_numpy(
+            jax_random.normal(seed, (buckets, dim)) / np.float32(math.sqrt(dim))
+        ).to(self.device)
 
     def _coo_block(self, texts: List[str]):
         """Sparse (rows, cols, vals) feature counts from the threaded C++
@@ -123,7 +126,8 @@ class HashedNGramEncoder:
 
     def encode_device(self, texts: List[str], chunk: int | None = None,
                       idf: np.ndarray | None = None, assoc=None,
-                      basis: np.ndarray | torch.Tensor | None = None) -> torch.Tensor:
+                      basis: np.ndarray | torch.Tensor | None = None,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Encode in fixed-size chunks: the native featurizer's COO triplets go
         to the device padded to a fixed nnz cap (``chunk * 256``, else the
         next power of two; padding entries point at a dump row), where they
@@ -136,7 +140,12 @@ class HashedNGramEncoder:
         features of documents and queries alike; ``assoc`` (from
         ``train_associations``) expands query features; ``basis``
         ([buckets, dim] numpy or tensor, from ``fit_projection`` or carried
-        across from the JAX package) replaces the Gaussian."""
+        across from the JAX package) replaces the Gaussian. ``dtype`` is the
+        type of the weighting, the product and the norm; the result is
+        float32 either way. float64 makes it the same to the bit on the card
+        and on the CPU (a float32 product sums in each device's own order, and
+        differs in the last place); the build pipeline's entity embeddings,
+        an artifact, take it."""
         if not texts:
             return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
         if chunk is None:
@@ -154,6 +163,7 @@ class HashedNGramEncoder:
             proj = basis.to(self.device, torch.float32)
         else:
             proj = torch.from_numpy(np.array(basis, np.float32)).to(self.device)
+        proj, idf_dev = proj.to(dtype), idf_dev.to(dtype)
         fixed_cap = chunk * 256
         outs = []
         for i in range(0, len(texts), chunk):
@@ -170,14 +180,16 @@ class HashedNGramEncoder:
             out = _project_normalize_sparse(
                 torch.from_numpy(rows).to(self.device),
                 torch.from_numpy(cols).to(self.device),
-                torch.from_numpy(vals).to(self.device), proj, idf_dev, n_rows=chunk)
-            outs.append(out[:len(block)])
+                torch.from_numpy(vals).to(self.device, dtype), proj, idf_dev,
+                n_rows=chunk)
+            outs.append(out[:len(block)].float())
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     def encode(self, texts: List[str], idf: np.ndarray | None = None,
-               assoc=None, basis: np.ndarray | torch.Tensor | None = None) -> np.ndarray:
-        return self.encode_device(texts, idf=idf, assoc=assoc,
-                                  basis=basis).cpu().numpy()
+               assoc=None, basis: np.ndarray | torch.Tensor | None = None,
+               dtype: torch.dtype = torch.float32) -> np.ndarray:
+        return self.encode_device(texts, idf=idf, assoc=assoc, basis=basis,
+                                  dtype=dtype).cpu().numpy()
 
     def _tfidf_block(self, block: List[str], idf_v: np.ndarray) -> np.ndarray:
         """Dense sublinear-TF x IDF rows for ``block``: the weighting

@@ -95,6 +95,23 @@ print their wall time:
      questions over phase 8's graph, card against CPU, with at least one
      ``dense_binmax`` launch per answer. Session files go to temporary
      working directories, removed afterwards;
+ 12. build, answer and score: ``run_pipeline`` over the XL dev world on the
+     card and on the CPU (stage seconds; the 9 artifact files,
+     ``structure.json`` and ``meta.json`` byte for byte equal, the index's
+     ids, IDF and associations equal, its embeddings and LSA basis within
+     1e-5; n_pad 6,144, so every one-query search goes through
+     ``dense_binmax``); ``run_benchmark(system="both")`` over the 150 dev
+     questions, over the card's graph on the card and the CPU's on the CPU
+     (rows and retrieved nodes equal, near ties counted; aggregate F1, EM and
+     recall@10; per-question ms; at least one ``dense_binmax`` launch per
+     ah_rag question); ``run_benchmark(system="ah_rag")`` over the first 32
+     ``synth_v4_dev`` items (a graph per question) card against CPU, with
+     ``eval_gate``'s verdict at ``make gate-v4``'s bars (printed only);
+     ``build_question_fleet`` over 16 of them and one scripted
+     ``rollout_multi`` over each stack, card against CPU; and
+     ``spherical_kmeans`` over the 1M rung's entity rows (k 724; init and 25
+     EM steps timed apart) and over the 131k rung's on the card and the CPU
+     (k 256; assignments equal but counted near ties);
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -111,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1571,6 +1589,260 @@ def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
         "host_graph": {"card": pcts(hcard_ms), "cpu": pcts(hcpu_ms),
                        "near_ties": host_ties, "launches": host_counts}}
 
+XL_BENCH_QUESTIONS = 150       # phase 12: every shared-KB dev question
+PER_QUESTION_ITEMS = 32        # phase 12: per-question graphs (synth_v4_dev)
+FLEET_ITEMS = 16               # phase 12: per-question graphs stacked
+GATE_V4 = (90.0, 0.85)         # ``make gate-v4``'s F1 and faithfulness bars
+
+
+def quiet(fn, *a, **kw):
+    """``fn(*a, **kw)`` with its standard output dropped: the pipeline and the
+    benchmark print each stage and a report table."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*a, **kw)
+
+
+def same_build(card_dir: str, cpu_dir: str) -> dict:
+    """The card's artifacts and saved graph against the CPU's: every artifact
+    file byte for byte; the graph's ``structure.json`` and ``meta.json`` byte
+    for byte, ``embeddings.npz``'s ids, IDF and associations equal, its
+    embeddings and LSA basis (float32 products in each device's order) within
+    1e-5. Returns the largest differences."""
+    import numpy as np
+    art = sorted(os.listdir(os.path.join(card_dir, "artifacts")))
+    check(art == sorted(os.listdir(os.path.join(cpu_dir, "artifacts"))) and len(art) >= 9,
+          f"artifact files {art}")
+    for rel in [f"artifacts/{a}" for a in art] + ["graph/structure.json", "graph/meta.json"]:
+        check(Path(card_dir, rel).read_bytes() == Path(cpu_dir, rel).read_bytes(),
+              f"{rel}: card and CPU files differ")
+    za = np.load(os.path.join(card_dir, "graph", "embeddings.npz"))
+    zb = np.load(os.path.join(cpu_dir, "graph", "embeddings.npz"))
+    check(za.files == zb.files, f"embeddings.npz keys {za.files} vs {zb.files}")
+    diffs = {}
+    for k in za.files:
+        if k in ("emb", "lsa"):
+            diffs[k] = float(np.abs(za[k] - zb[k]).max())
+            check(diffs[k] <= 1e-5, f"embeddings.npz {k} card vs CPU differ by {diffs[k]}")
+        else:
+            check(np.array_equal(za[k], zb[k]), f"embeddings.npz {k} card vs CPU differ")
+    return {"artifact_files": art, "max_abs_diff": diffs}
+
+
+def compare_rows(what, card, cpu, questions, answers, card_hg, cpu_hg) -> int:
+    """``run_benchmark``'s rows card against CPU, and each answer's retrieved
+    nodes (``answers[device][(system, question)]``): a difference passes only
+    as a counted near tie (``near_tie``) of the question's searches on the two
+    graphs. Returns the count of near ties."""
+    card, cpu = card["items"], cpu["items"]
+    check(len(card) == len(cpu) > 0, f"{what}: {len(card)} and {len(cpu)} rows")
+    ties = 0
+    for a, b in zip(card, cpu):
+        key = (a["system"], questions[a["id"]])
+        if a == b and answers["card"][key] == answers["cpu"][key]:
+            continue
+        diff = [k for k in a if a[k] != b.get(k)]
+        check(near_tie(card_hg, cpu_hg, key[1]),
+              f"{what}: card and CPU rows differ in {diff} (or retrieved nodes) on {key}, "
+              "not at a near tie")
+        ties += 1
+    return ties
+
+
+def phase_build(dev, ents_1m, ents_131k) -> dict:
+    """Build, answer and score on the card. (1) ``run_pipeline`` over the XL
+    dev world on the card and on the CPU: stage seconds, node counts, n_pad,
+    every artifact byte-equal and the saved graphs equal. (2)
+    ``run_benchmark(system="both")`` over its 150 dev questions, over the
+    card's graph on the card and the CPU's on the CPU: rows and retrieved
+    nodes equal (near ties counted), aggregate F1/EM/recall@10, per-question
+    ms, at least one ``dense_binmax`` launch per ``ah_rag`` question. (3)
+    ``run_benchmark(system="ah_rag")`` over the first 32 ``synth_v4_dev``
+    items (a graph per question), card against CPU, and ``eval_gate``'s
+    verdict at ``make gate-v4``'s bars (printed, not gated). (4)
+    ``build_question_fleet`` over 16 of those items on the card and the CPU:
+    stacked tensors, query vectors and gold masks equal (embeddings within
+    1e-5), then one scripted ``rollout_multi`` over each stack, actions and
+    rewards equal. (5) ``spherical_kmeans`` over the 1M rung's entity rows on
+    the card (init and EM timed apart), and over the 131k rung's on the card
+    and the CPU, assignments equal but counted near ties."""
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.agent.fleet import build_question_fleet
+    from ahrag_tpu_torch.cli import benchmark as bench
+    from ahrag_tpu_torch.cli.demo import run_pipeline
+    from ahrag_tpu_torch.cli.eval_gate import verdict
+    from ahrag_tpu_torch.graph import HierarchicalGraph
+    from ahrag_tpu_torch.graph.multi import rollout_multi
+    from ahrag_tpu_torch.graph.search import SearchWeights
+    from ahrag_tpu_torch.ops.kmeans import (kmeans_em, kmeans_init, spherical_kmeans,
+                                            unit_rows)
+    out = {}
+    devices = (("card", dev), ("cpu", torch.device("cpu")))
+    with scratch_cwd():
+        # (1) the pipeline over the XL dev world, card and CPU
+        corpus = str(SAMPLES / "synth_v4_sharedxl_corpus_dev.txt")
+        stages, hgs = {}, {}
+        for name, d in devices:
+            stages[name] = {}
+            t0 = time.perf_counter()
+            hgs[name] = quiet(run_pipeline, corpus, f"{name}/artifacts", f"{name}/graph",
+                              device=d, timings=stages[name])
+            torch.cuda.synchronize(dev)
+            stages[name]["total_s"] = time.perf_counter() - t0
+        same = same_build("card", "cpu")
+        stats = hgs["card"].stats()
+        n_pad = hgs["card"].tensors().n_pad
+        check(stats == hgs["cpu"].stats() and list(hgs["card"].nodes) == list(hgs["cpu"].nodes),
+              "card and CPU graphs hold the same nodes")
+        check(n_pad >= 4096, f"the pipeline's XL graph reaches the kernel path (n_pad {n_pad})")
+        log(f"  XL build: {json.dumps(stats)}, n_pad {n_pad}; stage seconds card "
+            f"{json.dumps(stages['card'])}, CPU {json.dumps(stages['cpu'])}; artifacts "
+            f"byte-equal card == CPU ({len(same['artifact_files'])} files), graphs equal "
+            f"(max |card - CPU| {json.dumps(same['max_abs_diff'])})")
+        out["xl_build"] = {"stats": stats, "n_pad": n_pad, "stages": stages, **same}
+
+        # (2) answer and score the 150 dev questions over each device's graph
+        items = xl_questions()[:XL_BENCH_QUESTIONS]
+        questions = {it["id"]: it["question"] for it in items}
+        answers = {"card": {}, "cpu": {}}
+        system_ms = {"card": {}, "cpu": {}}     # host ms of each system's answers
+        side = ["card"]
+        inner = bench.run_system
+
+        def recording(system, query, cfg, hg):
+            t0 = time.perf_counter()
+            ans = inner(system, query, cfg, hg)
+            system_ms[side[0]].setdefault(system, []).append((time.perf_counter() - t0) * 1e3)
+            answers[side[0]][(system, query)] = ans.get("retrieved_nodes", [])
+            return ans
+        bench.run_system = recording
+        reports, ms = {}, {}
+        data = str(SAMPLES / "synth_v4_sharedxl_dev.jsonl")
+        for name, d in devices:
+            ms[name], side[0] = [], name
+            reset_counts()
+            reports[name] = quiet(bench.run_benchmark, "local", system="both",
+                                  limit=XL_BENCH_QUESTIONS, data_path=data,
+                                  graph_dir=f"{name}/graph", device=d, item_ms=ms[name])
+            if name == "card":
+                torch.cuda.synchronize(dev)
+                launches = read_counts()
+        bench.run_system = inner
+        ties = compare_rows("XL benchmark", reports["card"], reports["cpu"], questions, answers,
+                            HierarchicalGraph.load("card/graph", device=dev),
+                            HierarchicalGraph.load("cpu/graph", device="cpu"))
+        agg = {r["system"]: {k: r[k] for k in ("n", "f1", "em", "retrieval_recall_at_10",
+                                                "faithfulness", "overall_score")}
+               for r in reports["card"]["aggregate"]}
+        n_ah = sum(r["system"] == "ah_rag" for r in reports["card"]["items"])
+        check(launches["binmax_cuda"] >= n_ah,
+              f"at least one dense_binmax launch per ah_rag question: {launches}")
+        split = {name: {system: pcts(v) for system, v in sorted(per.items())}
+                 for name, per in system_ms.items()}
+        log(f"  {len(items)} XL questions x 2 systems over the pipeline's graph: card == CPU "
+            f"({ties} near ties); aggregate {json.dumps(agg)}; per question (both systems "
+            f"and their scores, 2 workers) card {json.dumps(pcts(ms['card']))}, CPU "
+            f"{json.dumps(pcts(ms['cpu']))}; per answer by system {json.dumps(split)}; "
+            f"launches {launches}")
+        out["xl_benchmark"] = {"aggregate": agg, "near_ties": ties, "card": pcts(ms["card"]),
+                               "cpu": pcts(ms["cpu"]), "by_system": split,
+                               "launches": launches,
+                               "by_qtype": reports["card"].get("by_qtype")}
+
+        # (3) per-question graphs and the v4 gate
+        pq = str(SAMPLES / "synth_v4_dev.jsonl")
+        pq_reports, pq_ms = {}, {}
+        for name, d in devices:
+            pq_ms[name] = []
+            pq_reports[name] = quiet(bench.run_benchmark, "local", system="ah_rag",
+                                     limit=PER_QUESTION_ITEMS, data_path=pq, device=d,
+                                     item_ms=pq_ms[name])
+        check(pq_reports["card"] == pq_reports["cpu"],
+              "per-question graphs: card and CPU reports differ")
+        gate = verdict(pq_reports["card"], *GATE_V4)
+        pq_agg = pq_reports["card"]["aggregate"][0]
+        log(f"  {PER_QUESTION_ITEMS} per-question graphs (ah_rag): card == CPU; F1 "
+            f"{pq_agg['f1']:.2f}, EM {pq_agg['em']:.2f}, recall@10 "
+            f"{pq_agg['retrieval_recall_at_10']:.3f}; per question card "
+            f"{json.dumps(pcts(pq_ms['card']))}, CPU {json.dumps(pcts(pq_ms['cpu']))}; "
+            f"eval_gate at gate-v4's bars {GATE_V4}: {json.dumps(gate)}")
+        out["per_question"] = {"f1": pq_agg["f1"], "em": pq_agg["em"],
+                               "recall_at_10": pq_agg["retrieval_recall_at_10"],
+                               "card": pcts(pq_ms["card"]), "cpu": pcts(pq_ms["cpu"]),
+                               "gate_v4": gate}
+
+        # (4) a fleet of per-question graphs, stacked, and one rollout over it
+        fitems = [json.loads(ln) for ln in Path(pq).read_text().splitlines()[:FLEET_ITEMS]]
+        fleets, trajs = {}, {}
+        for name, d in devices:
+            t0 = time.perf_counter()
+            fleets[name] = quiet(build_question_fleet, fitems, log=lambda *_: None, device=d)
+            b, qv = fleets[name][0], torch.from_numpy(fleets[name][1]).to(d)
+            traj, _ = rollout_multi(b, qv, scripted_policy, SearchWeights.create(device=d),
+                                    max_steps=6)
+            trajs[name] = traj
+            fleets[name] = (*fleets[name], time.perf_counter() - t0)
+        (bc, qc, gc, mc, sc), (bp, qp, gp, mp, sp) = fleets["card"], fleets["cpu"]
+        emb_err = float((bc.emb.cpu() - bp.emb).abs().max())
+        for f in ("node_type", "level", "judge", "has_judge", "conf", "has_conf", "indexed",
+                  "valid", "parents", "children", "related", "hyperedges", "members"):
+            check(torch.equal(getattr(bc, f).cpu(), getattr(bp, f)), f"fleet {f} card vs CPU")
+        check(mc == mp and bc.n_nodes == bp.n_nodes and np.array_equal(gc, gp)
+              and emb_err <= 1e-5 and float(np.abs(qc - qp).max()) <= 1e-5,
+              f"fleet card vs CPU (emb {emb_err})")
+        for f in ("actions", "dones", "mask"):
+            check(torch.equal(getattr(trajs["card"], f).cpu(), getattr(trajs["cpu"], f)),
+                  f"fleet rollout {f} card vs CPU")
+        check(float((trajs["card"].rewards.cpu() - trajs["cpu"].rewards).abs().max()) <= 1e-5,
+              "fleet rollout rewards card vs CPU")
+        log(f"  fleet of {FLEET_ITEMS} per-question graphs: stack {tuple(bc.emb.shape)}, "
+            f"card == CPU (emb within {emb_err:.2e}), gold rows {int(gc.any(1).sum())}; "
+            f"built and rolled out in {sc:.1f}s on the card, {sp:.1f}s on the CPU")
+        out["fleet"] = {"graphs": FLEET_ITEMS, "n_pad": int(bc.n_pad), "card_s": sc,
+                        "cpu_s": sp, "emb_err": emb_err}
+
+    # (5) spherical k-means at scale: spherical_kmeans's steps, timed apart
+    x = unit_rows(ents_1m, dev)
+    k = max(1, int(round(math.sqrt(x.shape[0] / 2))))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cents = kmeans_init(x, k, seed=42)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    cents = kmeans_em(x, cents, 25)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    sizes = torch.bincount(torch.argmax(x @ cents.T, dim=1), minlength=k)
+    km = {"n": int(x.shape[0]), "k": k, "init_s": t1 - t0, "em_s": t2 - t1,
+          "em_step_ms": (t2 - t1) / 25 * 1e3, "nonempty": int((sizes > 0).sum()),
+          "largest": int(sizes.max())}
+    check(bool(torch.isfinite(cents).all()) and km["nonempty"] > 1, f"1M k-means {km}")
+    del x, cents
+    torch.cuda.empty_cache()
+    x131 = torch.from_numpy(ents_131k)
+    k131 = int(round(math.sqrt(x131.shape[0] / 2)))
+    res = {}
+    for name, d in devices:
+        t0 = time.perf_counter()
+        a, c = spherical_kmeans(x131, k131, seed=42, device=d)
+        a, c = a.cpu(), c.cpu()
+        res[name] = (a, c, time.perf_counter() - t0)
+    differ = torch.nonzero(res["card"][0] != res["cpu"][0]).flatten()
+    sims = unit_rows(ents_131k, "cpu") @ res["cpu"][1].double().T
+    top2 = torch.topk(sims[differ], 2, dim=1).values if len(differ) else torch.zeros(0, 2)
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    check(all(g < 1e-5 for g in gaps), f"131k k-means: card and CPU assignments differ "
+          f"beyond a near tie (top-2 gaps {gaps[:8]})")
+    km.update({"n_131k": int(x131.shape[0]), "k_131k": k131,
+               "card_131k_s": res["card"][2], "cpu_131k_s": res["cpu"][2],
+               "near_ties_131k": len(gaps),
+               "centroid_err_131k": float((res["card"][1] - res["cpu"][1]).abs().max())})
+    log(f"  spherical_kmeans: {json.dumps(km)}")
+    out["kmeans"] = km
+    out["launches"] = launches
+    return out
+
 
 def main() -> int:
     import torch
@@ -1680,6 +1952,7 @@ def main() -> int:
     rows["tile_topk_cuda"]["float32"] = flat[1]["kernel"]
     rows["binmax2_cuda"]["float32"] = f32_row
     log(f"phase 5 done in {time.perf_counter() - t:.1f}s")
+    ents_131k = r2["arrs"].emb[:r2["arrs"].n_entities]
     del r2, gt2, q2, mask2
 
     t = time.perf_counter()
@@ -1754,11 +2027,18 @@ def main() -> int:
     answered["wall_s"] = time.perf_counter() - t
     log(f"phase 11 done in {answered['wall_s']:.1f}s")
 
+    t = time.perf_counter()
+    log("phase 12: build, answer and score on the card: the XL pipeline, 150 questions, "
+        "per-question graphs, a fleet, k-means at 1M")
+    built = phase_build(dev, r1["arrs"].emb[:r1["arrs"].n_entities], ents_131k)
+    built["wall_s"] = time.perf_counter() - t
+    log(f"phase 12 done in {built['wall_s']:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
                    + hosted["launches"][k] + hosted["answer_launches"][k]
                    + loaded["launches"][k] + agent["launches"][k] + answered["launches"][k]
-                   for k in rows}
+                   + built["launches"][k] for k in rows}
     kernels = []
     for name, source, replaces in (
             ("binmax2_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:651"),
@@ -1788,7 +2068,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ahrag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "ahrag_tpu", "bench")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "pydantic", "ahrag_tpu", "bench")
 # the agent's device path: each must be found and imported by the guard below
 AGENT_MODULES = ("ahrag_tpu_torch.agent.featurizer", "ahrag_tpu_torch.agent.reward",
                  "ahrag_tpu_torch.agent.vec_env", "ahrag_tpu_torch.agent.optim",
@@ -28,6 +28,16 @@ ANSWER_MODULES = ("ahrag_tpu_torch.utils.logging", "ahrag_tpu_torch.utils.tokens
                   "ahrag_tpu_torch.baselines", "ahrag_tpu_torch.baselines.naive",
                   "ahrag_tpu_torch.cli.answer", "ahrag_tpu_torch.cli.agent",
                   "ahrag_tpu_torch.cli.env")
+# the build pipeline and the benchmark driver: each must be found and imported
+BUILD_MODULES = ("ahrag_tpu_torch.schema", "ahrag_tpu_torch.extract",
+                 "ahrag_tpu_torch.extract.chunking", "ahrag_tpu_torch.extract.extractor",
+                 "ahrag_tpu_torch.ops.kmeans", "ahrag_tpu_torch.aggregate",
+                 "ahrag_tpu_torch.aggregate.community", "ahrag_tpu_torch.aggregate.aggregator",
+                 "ahrag_tpu_torch.cli.demo", "ahrag_tpu_torch.eval",
+                 "ahrag_tpu_torch.eval.retrieval", "ahrag_tpu_torch.eval.judge",
+                 "ahrag_tpu_torch.eval.answer_eval", "ahrag_tpu_torch.cli.benchmark",
+                 "ahrag_tpu_torch.cli.eval_gate", "ahrag_tpu_torch.agent.fleet",
+                 "ahrag_tpu_torch.utils.jax_random")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -57,7 +67,20 @@ from ahrag_tpu_torch.graph import HierarchicalGraph
 from ahrag_tpu_torch.serve import RetrievalService
 from ahrag_tpu_torch.agent.ppo import PPOLearner
 from ahrag_tpu_torch.models.policy.nets import ActorCritic, MLPPolicy
-calls = [lambda: PPOLearner(84, 6), lambda: ActorCritic(84), lambda: MLPPolicy(84),
+from ahrag_tpu_torch.aggregate import SemanticAggregator
+from ahrag_tpu_torch.agent.fleet import build_question_fleet
+from ahrag_tpu_torch.cli import benchmark as cli_benchmark, demo as cli_demo
+from ahrag_tpu_torch.cli import eval_gate as cli_gate
+from ahrag_tpu_torch.ops.kmeans import spherical_kmeans
+calls = [lambda: cli_demo.run_pipeline("corpus_that_is_not_there.txt"),
+         lambda: SemanticAggregator(),
+         lambda: spherical_kmeans(np.zeros((4, 2), np.float32), 2),
+         lambda: cli_benchmark.run_benchmark("local", data_path="ev.json"),
+         lambda: build_question_fleet([]),
+         lambda: cli_demo.main(["corpus_that_is_not_there.txt", "--no-repl"]),
+         lambda: cli_benchmark.main(["--dataset", "local", "--data", "ev.json"]),
+         lambda: cli_gate.main(["--dataset", "local", "--data", "ev.json"]),
+         lambda: PPOLearner(84, 6), lambda: ActorCritic(84), lambda: MLPPolicy(84),
          lambda: SearchWeights.create(),
          lambda: HashedNGramEncoder(dim=8, buckets=64),
          lambda: bench_tensors(build_bench_arrays(64, 8, d=8), "float32"),
@@ -89,7 +112,8 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
-    proc = _run(_GUARD.format(blocked=BLOCKED, agent=AGENT_MODULES + ANSWER_MODULES), ROOT)
+    proc = _run(_GUARD.format(blocked=BLOCKED,
+                              agent=AGENT_MODULES + ANSWER_MODULES + BUILD_MODULES), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
@@ -151,7 +175,8 @@ def test_new_entry_points_refuse_cpu_fallback():
 
 
 # Where the port may not hold a ``try`` at all: the kernels, the native
-# featurizer, the models and every module of the search path.
+# featurizer, the models, every module of the search path, the agent and
+# answer modules, and the build pipeline, evaluation and benchmark driver.
 NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/models/",
           "ahrag_tpu_torch/device.py", "ahrag_tpu_torch/graph/search.py",
           "ahrag_tpu_torch/graph/tensors.py", "ahrag_tpu_torch/graph/beam.py",
@@ -165,7 +190,12 @@ NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/mo
           "ahrag_tpu_torch/answer/", "ahrag_tpu_torch/agent/environment.py",
           "ahrag_tpu_torch/agent/agent.py", "ahrag_tpu_torch/agent/inference.py",
           "ahrag_tpu_torch/baselines/", "ahrag_tpu_torch/cli/answer.py",
-          "ahrag_tpu_torch/cli/agent.py", "ahrag_tpu_torch/cli/env.py")
+          "ahrag_tpu_torch/cli/agent.py", "ahrag_tpu_torch/cli/env.py",
+          "ahrag_tpu_torch/schema.py", "ahrag_tpu_torch/extract/",
+          "ahrag_tpu_torch/aggregate/", "ahrag_tpu_torch/eval/",
+          "ahrag_tpu_torch/cli/demo.py", "ahrag_tpu_torch/cli/benchmark.py",
+          "ahrag_tpu_torch/cli/eval_gate.py", "ahrag_tpu_torch/agent/fleet.py",
+          "ahrag_tpu_torch/utils/jax_random.py")
 PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
 HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
 # the LLM client's network retry: the one scope where catching any error is
@@ -279,7 +309,8 @@ def try_faults(source: str, no_try: bool = False) -> list:
 def test_no_try_in_the_port():
     """No kernel falls back to its plain version, and no native call to
     Python, on failure: no ``try`` at all in the kernels, the native code, the
-    models, the search path and the agent and answer modules; elsewhere only a
+    models, the search path, the agent and answer modules and the build
+    pipeline, evaluation and benchmark driver; elsewhere only a
     parse guard (``float``, ``int`` or ``json`` parsing that yields a constant
     on (TypeError, ValueError)), a hand-off of a batch's exception to its
     submitters or to an HTTP error response, or the LLM client's network
@@ -354,6 +385,15 @@ class RetrievalService:
             resp = client.chat.completions.create(model="m")
         except Exception as exc:
             time.sleep(1.0)
+""",
+    "a finally that removes the question's corpus file": """
+def build_question_graph(context, workdir, encoder_name=None):
+    path = write_corpus(context, workdir)
+    try:
+        hg = run_pipeline(path, encoder_name=encoder_name)
+    finally:
+        os.unlink(path)
+    return hg
 """,
     "finally": """
 class MicroBatcher:
