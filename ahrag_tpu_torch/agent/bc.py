@@ -54,8 +54,8 @@ def bc_step(model: MLPPolicy, opt: Adam, xb: torch.Tensor, yb: torch.Tensor) -> 
 def train_bc(traj_path: str, out_path: str, epochs: int = 5, lr: float = 1e-3,
              n_actions: int = 6, batch_size: int = 256, seed: int = 0,
              device=None) -> dict:
+    dev = resolve_device(device)         # refuse before reading anything
     X, y = load_trajectories(traj_path)
-    dev = resolve_device(device)
     in_dim = X.shape[1]
     model = MLPPolicy(in_dim, n_actions, seed=seed, device=dev)
     opt = Adam(model.parameters(), lr)

@@ -6,6 +6,9 @@ with per-episode advantage normalisation, clipped surrogate + value MSE +
 entropy bonus, global-norm clip 1.0 and Adam as optax computes them
 (``agent/optim.py``), masked sampling at inference.
 
+- ``ppo_train``: the host loop over ``n_envs`` gyms (``agent/gym.py``), one
+  ``update`` per batch of episodes, early stop on the mean episode reward,
+  and resume from the ``.train`` state beside ``save_path``.
 - ``PPOLearner``: the ``ActorCritic`` on one device with the minibatch
   ``update`` (the same ``np.random.default_rng(seed).permutation`` order as
   the JAX package), ``act_and_logp`` and checkpoints in the port's own
@@ -19,8 +22,10 @@ entropy bonus, global-norm clip 1.0 and Adam as optax computes them
   without the mesh).
 
 Sampling draws from a ``torch.Generator``; JAX's key stream is not
-reproduced. The host-gym loop ``ppo_train`` is not ported (it needs the
-gym environment).
+reproduced, so a sampled episode also depends on the device the generator
+runs on. ``ppo_train`` keeps the JAX package's resume exactly: the per-step
+sampling seed starts again at ``seed`` on resume (it is not in the saved
+progress).
 """
 from __future__ import annotations
 
@@ -217,6 +222,95 @@ def act_ppo(learner: PPOLearner, obs_vec, mask=None, seed: int = 0) -> int:
 
 
 # --------------------------------------------------------------------- train
+def ppo_train(env_ctor: Callable[[], Any], questions: List[str],
+              total_episodes: int = 50, max_steps: int = 6,
+              ppo_cfg: Optional[PPOConfig] = None,
+              save_path: str = "artifacts/rl/ppo_policy.msgpack",
+              n_envs: int = 1, early_stop_patience: int = 5,
+              early_stop_min_improve: float = 0.05, seed: int = 0,
+              resume: bool = False, log: Callable[[str], None] = print,
+              device=None) -> PPOLearner:
+    """Host-gym PPO: each batch runs one episode in each of ``n_envs`` gyms
+    (masked sampling, at most ``max_steps`` steps), then one ``update`` over
+    their steps. Stops early when the batch's mean episode reward has not
+    beaten the best by ``early_stop_min_improve`` for
+    ``early_stop_patience`` batches. After each batch the training state
+    goes to ``save_path + ".train"``; ``resume`` continues from it. The
+    learner lives on ``device`` (``cuda`` unless named)."""
+    cfg = ppo_cfg or PPOConfig()
+    n_envs = max(1, int(n_envs))
+    envs = [env_ctor() for _ in range(n_envs)]
+    obs0, _ = envs[0].reset(questions[0] if questions else "warmup question")
+    learner = PPOLearner(int(obs0.shape[0]), int(envs[0].action_size), cfg, seed=seed,
+                         device=device)
+
+    train_ckpt = save_path + ".train"
+    best_mavg = -1e9
+    stale = 0
+    ep_idx = 0
+    start_index = 0
+    if resume and os.path.exists(train_ckpt):
+        progress = learner.restore_training_state(train_ckpt)
+        best_mavg = float(progress.get("best_mavg", best_mavg))
+        stale = int(progress.get("stale", 0))
+        ep_idx = int(progress.get("ep_idx", 0))
+        start_index = int(progress.get("next_index", 0))
+        log(f"[PPO] resumed at batch index {start_index} (ep_idx={ep_idx})")
+    step_seed = seed
+    data = questions[: total_episodes * n_envs] or ["warmup question"]
+    for i in range(start_index, len(data), n_envs):
+        batch_qs = data[i:i + n_envs]
+        batch: Dict[str, List[np.ndarray]] = {"obs": [], "act": [], "logp": [],
+                                              "ret": [], "adv": []}
+        ep_rewards: List[float] = []
+        for e, env in enumerate(envs):
+            q = batch_qs[e] if e < len(batch_qs) else ""
+            obs, _ = env.reset(q)
+            obs_l, act_l, logp_l, rew_l, val_l, done_l = [], [], [], [], [], []
+            done, steps = False, 0
+            while not done and steps < max_steps:
+                mask = np.asarray(env.get_action_mask(), dtype=np.float32)
+                step_seed += 1
+                a, lp, v = learner.act_and_logp(obs, mask=mask, seed=step_seed)
+                nobs, r, done, _info = env.step(a)
+                obs_l.append(obs)
+                act_l.append(a)
+                logp_l.append(lp)
+                rew_l.append(r)
+                val_l.append(v)
+                done_l.append(done)
+                obs = nobs
+                steps += 1
+            adv, ret = compute_gae(rew_l, val_l, done_l, cfg.gamma, cfg.gae_lambda)
+            batch["obs"].append(np.stack(obs_l))
+            batch["act"].append(np.asarray(act_l, dtype=np.int64))
+            batch["logp"].append(np.asarray(logp_l, dtype=np.float32))
+            batch["ret"].append(ret)
+            batch["adv"].append(adv)
+            ep_idx += 1
+            ep_rewards.append(float(np.sum(rew_l)))
+            log(f"[PPO] episode={ep_idx} env={e} steps={steps} "
+                f"ep_reward={ep_rewards[-1]:.3f}")
+        losses = learner.update(*(np.concatenate(batch[k])
+                                  for k in ("obs", "act", "logp", "ret", "adv")),
+                                seed=seed + i)
+        mavg = float(np.mean(ep_rewards))
+        log(f"[PPO] update mavg_ep_reward={mavg:.3f} loss={losses}")
+        if mavg > best_mavg + early_stop_min_improve:
+            best_mavg, stale = mavg, 0
+        else:
+            stale += 1
+            if stale >= max(1, early_stop_patience):
+                log(f"[PPO] early stopping: best mavg={best_mavg:.3f}")
+                break
+        learner.save_training_state(train_ckpt, {
+            "next_index": i + n_envs, "best_mavg": best_mavg,
+            "stale": stale, "ep_idx": ep_idx})
+    learner.save(save_path)
+    log(f"Saved PPO policy to {save_path}")
+    return learner
+
+
 def make_train_step(learner: PPOLearner, w, max_steps: int = 6, top_k: int = 5,
                     member_top_m: int = 5) -> Callable[..., Dict[str, torch.Tensor]]:
     """``train_step(gt, q_embs, generator=None) -> metrics``: batched

@@ -7,8 +7,9 @@ The port's copy of ``ahrag_tpu/cli/benchmark.py``: every graph is built, loaded
 and searched on ``device`` (``cuda`` unless told otherwise). HotpotQA and
 TriviaQA come only from local JSONL files here: the JAX package fetches them
 through the ``datasets`` wheel, which needs the network, and the port refuses
-those names without ``--data``. The knob policy (``rl.inference.
-use_knob_policy``) is not ported yet and raises when set. Capability parity
+those names without ``--data``. ``rl.inference.use_knob_policy`` picks each
+question's knobs with ``agent/knob_policy.py`` (the JAX package's flax file or
+the port's own). Capability parity
 with the reference's benchmark runner, with two deliberate upgrades over it:
 
 - per-question knowledge graphs build **in-process** (no subprocess-per-question —
@@ -111,11 +112,10 @@ def run_system(system: str, query: str, cfg: Dict[str, Any], hg) -> Dict[str, An
         knobs = None
         kp_path = rl_cfg.get("knob_policy_path", "")
         if rl_cfg.get("use_knob_policy") and os.path.exists(kp_path):
-            # the trained policy that picks each question's retrieval knobs
-            # (the JAX package's agent/knob_policy.py) is not ported yet
-            raise NotImplementedError(
-                "rl.inference.use_knob_policy: the knob policy is not ported to "
-                "ahrag_tpu_torch yet")
+            # the trained policy picks this question's retrieval knob config
+            # (agent/knob_policy.py), on the graph's device
+            from ahrag_tpu_torch.agent.knob_policy import load_knob_policy
+            knobs = load_knob_policy(kp_path, device=hg.device)(query)
         return engine.run_inference(
             query, steps=int(cfg.get("inference", {}).get("steps", 4)),
             knobs=knobs)

@@ -112,6 +112,24 @@ print their wall time:
      ``spherical_kmeans`` over the 1M rung's entity rows (k 724; init and 25
      EM steps timed apart) and over the 131k rung's on the card and the CPU
      (k 256; assignments equal but counted near ties);
+ 13. the host training path over phase 12's XL graphs (kept alive, in the
+     same scratch directory): ``AHRAGGymEnv`` under a scripted action cycle
+     over 64 dev questions, card against CPU (observations within 1e-5,
+     rewards, dones, masks and selections equal, near ties counted; at least
+     one ``dense_binmax`` launch per reset; ms per step); the gym against
+     ``vec_env.env_reset``/``env_step`` on the card (``TestVecEnvParity``'s
+     sequences and the end action over 32 questions); ``collect_trajectories``,
+     ``train_rl`` and ``eval_rl_policy --policy`` card against CPU and
+     ``train_bc`` on the card; ``run_pipeline`` over the XL train world and
+     ``ppo_train`` over its 150 questions (4 gyms, 32 batches, early stop
+     allowed: episodes/s, step and update ms, batch rewards, launches), and a
+     2-batch run resumed to 4 that restores the saved state bit for bit; that
+     policy through ``eval_rl_policy`` (64 dev questions) and ``rl_transfer
+     --strip-context`` (32); ``train_knob_policy`` (400 steps) and
+     ``evaluate_policy`` on the v6 matrices, then ``run_benchmark`` steered by
+     that policy over 32 dev questions, card against CPU; and
+     ``cluster_eval.run`` at 10,000 entities, 48 topics, 8 super-topics, card
+     against CPU, beside the JAX report's L1 quality;
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -1649,7 +1667,7 @@ def compare_rows(what, card, cpu, questions, answers, card_hg, cpu_hg) -> int:
     return ties
 
 
-def phase_build(dev, ents_1m, ents_131k) -> dict:
+def phase_build(dev, ents_1m, ents_131k) -> tuple:
     """Build, answer and score on the card. (1) ``run_pipeline`` over the XL
     dev world on the card and on the CPU: stage seconds, node counts, n_pad,
     every artifact byte-equal and the saved graphs equal. (2)
@@ -1665,7 +1683,9 @@ def phase_build(dev, ents_1m, ents_131k) -> dict:
     1e-5), then one scripted ``rollout_multi`` over each stack, actions and
     rewards equal. (5) ``spherical_kmeans`` over the 1M rung's entity rows on
     the card (init and EM timed apart), and over the 131k rung's on the card
-    and the CPU, assignments equal but counted near ties."""
+    and the CPU, assignments equal but counted near ties. Works in the
+    current directory (the pipeline's files go under ``card/`` and ``cpu/``);
+    returns (results, the card's and the CPU's XL graphs)."""
     import numpy as np
     import torch
     from ahrag_tpu_torch.agent.fleet import build_question_fleet
@@ -1679,128 +1699,127 @@ def phase_build(dev, ents_1m, ents_131k) -> dict:
                                             unit_rows)
     out = {}
     devices = (("card", dev), ("cpu", torch.device("cpu")))
-    with scratch_cwd():
-        # (1) the pipeline over the XL dev world, card and CPU
-        corpus = str(SAMPLES / "synth_v4_sharedxl_corpus_dev.txt")
-        stages, hgs = {}, {}
-        for name, d in devices:
-            stages[name] = {}
-            t0 = time.perf_counter()
-            hgs[name] = quiet(run_pipeline, corpus, f"{name}/artifacts", f"{name}/graph",
-                              device=d, timings=stages[name])
+    # (1) the pipeline over the XL dev world, card and CPU
+    corpus = str(SAMPLES / "synth_v4_sharedxl_corpus_dev.txt")
+    stages, hgs = {}, {}
+    for name, d in devices:
+        stages[name] = {}
+        t0 = time.perf_counter()
+        hgs[name] = quiet(run_pipeline, corpus, f"{name}/artifacts", f"{name}/graph",
+                          device=d, timings=stages[name])
+        torch.cuda.synchronize(dev)
+        stages[name]["total_s"] = time.perf_counter() - t0
+    same = same_build("card", "cpu")
+    stats = hgs["card"].stats()
+    n_pad = hgs["card"].tensors().n_pad
+    check(stats == hgs["cpu"].stats() and list(hgs["card"].nodes) == list(hgs["cpu"].nodes),
+          "card and CPU graphs hold the same nodes")
+    check(n_pad >= 4096, f"the pipeline's XL graph reaches the kernel path (n_pad {n_pad})")
+    log(f"  XL build: {json.dumps(stats)}, n_pad {n_pad}; stage seconds card "
+        f"{json.dumps(stages['card'])}, CPU {json.dumps(stages['cpu'])}; artifacts "
+        f"byte-equal card == CPU ({len(same['artifact_files'])} files), graphs equal "
+        f"(max |card - CPU| {json.dumps(same['max_abs_diff'])})")
+    out["xl_build"] = {"stats": stats, "n_pad": n_pad, "stages": stages, **same}
+
+    # (2) answer and score the 150 dev questions over each device's graph
+    items = xl_questions()[:XL_BENCH_QUESTIONS]
+    questions = {it["id"]: it["question"] for it in items}
+    answers = {"card": {}, "cpu": {}}
+    system_ms = {"card": {}, "cpu": {}}     # host ms of each system's answers
+    side = ["card"]
+    inner = bench.run_system
+
+    def recording(system, query, cfg, hg):
+        t0 = time.perf_counter()
+        ans = inner(system, query, cfg, hg)
+        system_ms[side[0]].setdefault(system, []).append((time.perf_counter() - t0) * 1e3)
+        answers[side[0]][(system, query)] = ans.get("retrieved_nodes", [])
+        return ans
+    bench.run_system = recording
+    reports, ms = {}, {}
+    data = str(SAMPLES / "synth_v4_sharedxl_dev.jsonl")
+    for name, d in devices:
+        ms[name], side[0] = [], name
+        reset_counts()
+        reports[name] = quiet(bench.run_benchmark, "local", system="both",
+                              limit=XL_BENCH_QUESTIONS, data_path=data,
+                              graph_dir=f"{name}/graph", device=d, item_ms=ms[name])
+        if name == "card":
             torch.cuda.synchronize(dev)
-            stages[name]["total_s"] = time.perf_counter() - t0
-        same = same_build("card", "cpu")
-        stats = hgs["card"].stats()
-        n_pad = hgs["card"].tensors().n_pad
-        check(stats == hgs["cpu"].stats() and list(hgs["card"].nodes) == list(hgs["cpu"].nodes),
-              "card and CPU graphs hold the same nodes")
-        check(n_pad >= 4096, f"the pipeline's XL graph reaches the kernel path (n_pad {n_pad})")
-        log(f"  XL build: {json.dumps(stats)}, n_pad {n_pad}; stage seconds card "
-            f"{json.dumps(stages['card'])}, CPU {json.dumps(stages['cpu'])}; artifacts "
-            f"byte-equal card == CPU ({len(same['artifact_files'])} files), graphs equal "
-            f"(max |card - CPU| {json.dumps(same['max_abs_diff'])})")
-        out["xl_build"] = {"stats": stats, "n_pad": n_pad, "stages": stages, **same}
+            launches = read_counts()
+    bench.run_system = inner
+    ties = compare_rows("XL benchmark", reports["card"], reports["cpu"], questions, answers,
+                        HierarchicalGraph.load("card/graph", device=dev),
+                        HierarchicalGraph.load("cpu/graph", device="cpu"))
+    agg = {r["system"]: {k: r[k] for k in ("n", "f1", "em", "retrieval_recall_at_10",
+                                            "faithfulness", "overall_score")}
+           for r in reports["card"]["aggregate"]}
+    n_ah = sum(r["system"] == "ah_rag" for r in reports["card"]["items"])
+    check(launches["binmax_cuda"] >= n_ah,
+          f"at least one dense_binmax launch per ah_rag question: {launches}")
+    split = {name: {system: pcts(v) for system, v in sorted(per.items())}
+             for name, per in system_ms.items()}
+    log(f"  {len(items)} XL questions x 2 systems over the pipeline's graph: card == CPU "
+        f"({ties} near ties); aggregate {json.dumps(agg)}; per question (both systems "
+        f"and their scores, 2 workers) card {json.dumps(pcts(ms['card']))}, CPU "
+        f"{json.dumps(pcts(ms['cpu']))}; per answer by system {json.dumps(split)}; "
+        f"launches {launches}")
+    out["xl_benchmark"] = {"aggregate": agg, "near_ties": ties, "card": pcts(ms["card"]),
+                           "cpu": pcts(ms["cpu"]), "by_system": split,
+                           "launches": launches,
+                           "by_qtype": reports["card"].get("by_qtype")}
 
-        # (2) answer and score the 150 dev questions over each device's graph
-        items = xl_questions()[:XL_BENCH_QUESTIONS]
-        questions = {it["id"]: it["question"] for it in items}
-        answers = {"card": {}, "cpu": {}}
-        system_ms = {"card": {}, "cpu": {}}     # host ms of each system's answers
-        side = ["card"]
-        inner = bench.run_system
+    # (3) per-question graphs and the v4 gate
+    pq = str(SAMPLES / "synth_v4_dev.jsonl")
+    pq_reports, pq_ms = {}, {}
+    for name, d in devices:
+        pq_ms[name] = []
+        pq_reports[name] = quiet(bench.run_benchmark, "local", system="ah_rag",
+                                 limit=PER_QUESTION_ITEMS, data_path=pq, device=d,
+                                 item_ms=pq_ms[name])
+    check(pq_reports["card"] == pq_reports["cpu"],
+          "per-question graphs: card and CPU reports differ")
+    gate = verdict(pq_reports["card"], *GATE_V4)
+    pq_agg = pq_reports["card"]["aggregate"][0]
+    log(f"  {PER_QUESTION_ITEMS} per-question graphs (ah_rag): card == CPU; F1 "
+        f"{pq_agg['f1']:.2f}, EM {pq_agg['em']:.2f}, recall@10 "
+        f"{pq_agg['retrieval_recall_at_10']:.3f}; per question card "
+        f"{json.dumps(pcts(pq_ms['card']))}, CPU {json.dumps(pcts(pq_ms['cpu']))}; "
+        f"eval_gate at gate-v4's bars {GATE_V4}: {json.dumps(gate)}")
+    out["per_question"] = {"f1": pq_agg["f1"], "em": pq_agg["em"],
+                           "recall_at_10": pq_agg["retrieval_recall_at_10"],
+                           "card": pcts(pq_ms["card"]), "cpu": pcts(pq_ms["cpu"]),
+                           "gate_v4": gate}
 
-        def recording(system, query, cfg, hg):
-            t0 = time.perf_counter()
-            ans = inner(system, query, cfg, hg)
-            system_ms[side[0]].setdefault(system, []).append((time.perf_counter() - t0) * 1e3)
-            answers[side[0]][(system, query)] = ans.get("retrieved_nodes", [])
-            return ans
-        bench.run_system = recording
-        reports, ms = {}, {}
-        data = str(SAMPLES / "synth_v4_sharedxl_dev.jsonl")
-        for name, d in devices:
-            ms[name], side[0] = [], name
-            reset_counts()
-            reports[name] = quiet(bench.run_benchmark, "local", system="both",
-                                  limit=XL_BENCH_QUESTIONS, data_path=data,
-                                  graph_dir=f"{name}/graph", device=d, item_ms=ms[name])
-            if name == "card":
-                torch.cuda.synchronize(dev)
-                launches = read_counts()
-        bench.run_system = inner
-        ties = compare_rows("XL benchmark", reports["card"], reports["cpu"], questions, answers,
-                            HierarchicalGraph.load("card/graph", device=dev),
-                            HierarchicalGraph.load("cpu/graph", device="cpu"))
-        agg = {r["system"]: {k: r[k] for k in ("n", "f1", "em", "retrieval_recall_at_10",
-                                                "faithfulness", "overall_score")}
-               for r in reports["card"]["aggregate"]}
-        n_ah = sum(r["system"] == "ah_rag" for r in reports["card"]["items"])
-        check(launches["binmax_cuda"] >= n_ah,
-              f"at least one dense_binmax launch per ah_rag question: {launches}")
-        split = {name: {system: pcts(v) for system, v in sorted(per.items())}
-                 for name, per in system_ms.items()}
-        log(f"  {len(items)} XL questions x 2 systems over the pipeline's graph: card == CPU "
-            f"({ties} near ties); aggregate {json.dumps(agg)}; per question (both systems "
-            f"and their scores, 2 workers) card {json.dumps(pcts(ms['card']))}, CPU "
-            f"{json.dumps(pcts(ms['cpu']))}; per answer by system {json.dumps(split)}; "
-            f"launches {launches}")
-        out["xl_benchmark"] = {"aggregate": agg, "near_ties": ties, "card": pcts(ms["card"]),
-                               "cpu": pcts(ms["cpu"]), "by_system": split,
-                               "launches": launches,
-                               "by_qtype": reports["card"].get("by_qtype")}
-
-        # (3) per-question graphs and the v4 gate
-        pq = str(SAMPLES / "synth_v4_dev.jsonl")
-        pq_reports, pq_ms = {}, {}
-        for name, d in devices:
-            pq_ms[name] = []
-            pq_reports[name] = quiet(bench.run_benchmark, "local", system="ah_rag",
-                                     limit=PER_QUESTION_ITEMS, data_path=pq, device=d,
-                                     item_ms=pq_ms[name])
-        check(pq_reports["card"] == pq_reports["cpu"],
-              "per-question graphs: card and CPU reports differ")
-        gate = verdict(pq_reports["card"], *GATE_V4)
-        pq_agg = pq_reports["card"]["aggregate"][0]
-        log(f"  {PER_QUESTION_ITEMS} per-question graphs (ah_rag): card == CPU; F1 "
-            f"{pq_agg['f1']:.2f}, EM {pq_agg['em']:.2f}, recall@10 "
-            f"{pq_agg['retrieval_recall_at_10']:.3f}; per question card "
-            f"{json.dumps(pcts(pq_ms['card']))}, CPU {json.dumps(pcts(pq_ms['cpu']))}; "
-            f"eval_gate at gate-v4's bars {GATE_V4}: {json.dumps(gate)}")
-        out["per_question"] = {"f1": pq_agg["f1"], "em": pq_agg["em"],
-                               "recall_at_10": pq_agg["retrieval_recall_at_10"],
-                               "card": pcts(pq_ms["card"]), "cpu": pcts(pq_ms["cpu"]),
-                               "gate_v4": gate}
-
-        # (4) a fleet of per-question graphs, stacked, and one rollout over it
-        fitems = [json.loads(ln) for ln in Path(pq).read_text().splitlines()[:FLEET_ITEMS]]
-        fleets, trajs = {}, {}
-        for name, d in devices:
-            t0 = time.perf_counter()
-            fleets[name] = quiet(build_question_fleet, fitems, log=lambda *_: None, device=d)
-            b, qv = fleets[name][0], torch.from_numpy(fleets[name][1]).to(d)
-            traj, _ = rollout_multi(b, qv, scripted_policy, SearchWeights.create(device=d),
-                                    max_steps=6)
-            trajs[name] = traj
-            fleets[name] = (*fleets[name], time.perf_counter() - t0)
-        (bc, qc, gc, mc, sc), (bp, qp, gp, mp, sp) = fleets["card"], fleets["cpu"]
-        emb_err = float((bc.emb.cpu() - bp.emb).abs().max())
-        for f in ("node_type", "level", "judge", "has_judge", "conf", "has_conf", "indexed",
-                  "valid", "parents", "children", "related", "hyperedges", "members"):
-            check(torch.equal(getattr(bc, f).cpu(), getattr(bp, f)), f"fleet {f} card vs CPU")
-        check(mc == mp and bc.n_nodes == bp.n_nodes and np.array_equal(gc, gp)
-              and emb_err <= 1e-5 and float(np.abs(qc - qp).max()) <= 1e-5,
-              f"fleet card vs CPU (emb {emb_err})")
-        for f in ("actions", "dones", "mask"):
-            check(torch.equal(getattr(trajs["card"], f).cpu(), getattr(trajs["cpu"], f)),
-                  f"fleet rollout {f} card vs CPU")
-        check(float((trajs["card"].rewards.cpu() - trajs["cpu"].rewards).abs().max()) <= 1e-5,
-              "fleet rollout rewards card vs CPU")
-        log(f"  fleet of {FLEET_ITEMS} per-question graphs: stack {tuple(bc.emb.shape)}, "
-            f"card == CPU (emb within {emb_err:.2e}), gold rows {int(gc.any(1).sum())}; "
-            f"built and rolled out in {sc:.1f}s on the card, {sp:.1f}s on the CPU")
-        out["fleet"] = {"graphs": FLEET_ITEMS, "n_pad": int(bc.n_pad), "card_s": sc,
-                        "cpu_s": sp, "emb_err": emb_err}
+    # (4) a fleet of per-question graphs, stacked, and one rollout over it
+    fitems = [json.loads(ln) for ln in Path(pq).read_text().splitlines()[:FLEET_ITEMS]]
+    fleets, trajs = {}, {}
+    for name, d in devices:
+        t0 = time.perf_counter()
+        fleets[name] = quiet(build_question_fleet, fitems, log=lambda *_: None, device=d)
+        b, qv = fleets[name][0], torch.from_numpy(fleets[name][1]).to(d)
+        traj, _ = rollout_multi(b, qv, scripted_policy, SearchWeights.create(device=d),
+                                max_steps=6)
+        trajs[name] = traj
+        fleets[name] = (*fleets[name], time.perf_counter() - t0)
+    (bc, qc, gc, mc, sc), (bp, qp, gp, mp, sp) = fleets["card"], fleets["cpu"]
+    emb_err = float((bc.emb.cpu() - bp.emb).abs().max())
+    for f in ("node_type", "level", "judge", "has_judge", "conf", "has_conf", "indexed",
+              "valid", "parents", "children", "related", "hyperedges", "members"):
+        check(torch.equal(getattr(bc, f).cpu(), getattr(bp, f)), f"fleet {f} card vs CPU")
+    check(mc == mp and bc.n_nodes == bp.n_nodes and np.array_equal(gc, gp)
+          and emb_err <= 1e-5 and float(np.abs(qc - qp).max()) <= 1e-5,
+          f"fleet card vs CPU (emb {emb_err})")
+    for f in ("actions", "dones", "mask"):
+        check(torch.equal(getattr(trajs["card"], f).cpu(), getattr(trajs["cpu"], f)),
+              f"fleet rollout {f} card vs CPU")
+    check(float((trajs["card"].rewards.cpu() - trajs["cpu"].rewards).abs().max()) <= 1e-5,
+          "fleet rollout rewards card vs CPU")
+    log(f"  fleet of {FLEET_ITEMS} per-question graphs: stack {tuple(bc.emb.shape)}, "
+        f"card == CPU (emb within {emb_err:.2e}), gold rows {int(gc.any(1).sum())}; "
+        f"built and rolled out in {sc:.1f}s on the card, {sp:.1f}s on the CPU")
+    out["fleet"] = {"graphs": FLEET_ITEMS, "n_pad": int(bc.n_pad), "card_s": sc,
+                    "cpu_s": sp, "emb_err": emb_err}
 
     # (5) spherical k-means at scale: spherical_kmeans's steps, timed apart
     x = unit_rows(ents_1m, dev)
@@ -1841,6 +1860,394 @@ def phase_build(dev, ents_1m, ents_131k) -> dict:
     log(f"  spherical_kmeans: {json.dumps(km)}")
     out["kmeans"] = km
     out["launches"] = launches
+    return out, hgs
+
+
+GYM_QUESTIONS = 64             # phase 13: XL dev questions through the gym, card and CPU
+GYM_CYCLE = (0, 3, 2, 1, 4, 3)  # phase 13's scripted gym policy; a masked action falls to end
+VEC_QUESTIONS = 32             # phase 13: the gym against vec_env
+VEC_SEQUENCES = ((0, 3, 2, 1), (3, 0, 0, 2), (1, 2, 3, 4), (4, 3, 1, 0))   # TestVecEnvParity
+PPO_BATCHES = 32               # phase 13: ppo_train batches of 4 episodes (train_ppo's envs)
+TRANSFER_QUESTIONS = 32        # phase 13: rl_transfer and the knob-policy benchmark
+# cli/cluster_eval at the configuration of reports/cluster_eval_10k_hier.json, and that
+# report's L1 quality (the JAX package's run that wrote it)
+CLUSTER_EVAL = dict(n=10000, n_topics=48, noise_frac=0.05, seed=3, n_super=8, super_frac=0.3)
+CLUSTER_EVAL_REPORT = {"purity": 0.9896, "nmi": 0.9796, "n_pred_topics": 52, "n_outliers": 323}
+REPORTS = SAMPLES.parent / "reports"
+
+
+def printed_json(fn, argv) -> dict:
+    """The JSON object a CLI's ``main(argv)`` prints last."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    text = buf.getvalue()
+    return json.loads(text[text.rindex("\n{") + 1 if "\n{" in text else text.index("{"):])
+
+
+def gym_episode(env, query: str) -> tuple:
+    """One episode of the scripted cycle (``GYM_CYCLE``, a masked action
+    replaced by end): the reset's and every step's (observation, reward,
+    done, mask, selection ids), and host ms of the reset and of each step."""
+    def ids(info):
+        return [n["node_id"] for n in info["raw_obs"].get("selection") or []]
+    t0 = time.perf_counter()
+    vec, info = env.reset(query)
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    rec, step_ms, done, t = [(vec, 0.0, False, info["action_mask"], ids(info))], [], False, 0
+    while not done:
+        a = GYM_CYCLE[t % len(GYM_CYCLE)]
+        a = a if info["action_mask"][a] else 5
+        t0 = time.perf_counter()
+        vec, r, done, info = env.step(a)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rec.append((vec, r, done, info["action_mask"], ids(info)))
+        t += 1
+    return rec, reset_ms, step_ms
+
+
+def same_episode(a, b, tol: float = 1e-5) -> bool:
+    """Two ``gym_episode`` records equal, observations within ``tol``."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        float(np.abs(x[0] - y[0]).max()) <= tol and x[1:] == y[1:] for x, y in zip(a, b))
+
+
+def phase_host_training(dev, hgs) -> dict:
+    """The host training path on the card, over phase 12's XL pipeline graphs
+    (``hgs``: the card's and the CPU's; n_pad 6,144, so every gym reset's
+    anchor is one ``dense_binmax`` search). (a) ``AHRAGGymEnv`` under a
+    scripted cycle over 64 dev questions, card against CPU: observations
+    within 1e-5, rewards, dones, masks and selections equal (near ties
+    counted), at least one ``dense_binmax`` launch per reset, ms per step.
+    (b) The gym against ``vec_env.env_reset``/``env_step`` on the card's
+    tensors: ``TestVecEnvParity``'s four sequences and the end action over
+    32 questions (observations 2e-3, rewards 1e-5, dones equal). (c)
+    ``collect_trajectories`` (gym route, seed 0) over the 64 questions,
+    ``train_rl``'s frequencies and ``eval_rl_policy``'s action-prob rows, card
+    against CPU, and ``train_bc`` on the card. (d) ``run_pipeline`` over the
+    XL train world on the card, then ``ppo_train`` over its 150 questions
+    (4 gyms, 32 batches, epochs 2, max_steps 6): episodes/s, step and update
+    ms, per-batch reward, launches; and a 2-batch run resumed to 4, restoring
+    the saved parameters and Adam state bit for bit. (e) That policy through
+    ``eval_rl_policy`` over 64 dev questions and ``rl_transfer
+    --strip-context`` (rule against PPO) over 32, on the card. (f)
+    ``train_knob_policy`` on the v6 train matrix (400 steps), ``evaluate_policy``
+    on the v6 dev matrix, and ``run_benchmark(system="ah_rag")`` with that
+    policy over 32 dev questions, card against CPU (rows equal). (g)
+    ``cluster_eval.run`` at ``CLUSTER_EVAL``, card against CPU (every metric
+    equal), beside the JAX report's L1 quality."""
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.agent import vec_env
+    from ahrag_tpu_torch.agent.gym import AHRAGGymEnv
+    from ahrag_tpu_torch.agent.knob_policy import (CONFIG_KNOBS, evaluate_policy,
+                                                   load_knob_policy, train_knob_policy)
+    from ahrag_tpu_torch.agent.ppo import PPOConfig, PPOLearner, ppo_train
+    from ahrag_tpu_torch.cli import benchmark as bench
+    from ahrag_tpu_torch.cli import cluster_eval, rl_transfer, train_bc, train_rl
+    from ahrag_tpu_torch.cli.collect_trajectories import collect_gym
+    from ahrag_tpu_torch.cli.demo import run_pipeline
+    from ahrag_tpu_torch.cli.eval_rl_policy import evaluate_episodes
+    from ahrag_tpu_torch.graph.search import SearchWeights
+    from ahrag_tpu_torch.utils.config import load_config
+    out, launches = {}, {}
+    devices = (("card", dev), ("cpu", torch.device("cpu")))
+    card_hg, cpu_hg = hgs["card"], hgs["cpu"]
+    items = xl_questions()[:GYM_QUESTIONS]
+    qs = [it["question"] for it in items]
+
+    # (a) the gym under a scripted cycle, card against CPU
+    eps, reset_ms, step_ms = {}, {}, {}
+    for name, _ in devices:
+        env = AHRAGGymEnv(hg=hgs[name], max_steps=6)
+        reset_counts()
+        runs = [gym_episode(env, q) for q in qs]
+        torch.cuda.synchronize(dev)
+        if name == "card":
+            launches["gym"] = read_counts()
+        eps[name] = [r[0] for r in runs]
+        reset_ms[name] = [r[1] for r in runs]
+        step_ms[name] = [ms for r in runs for ms in r[2]]
+    ties = 0
+    for q, a, b in zip(qs, eps["card"], eps["cpu"]):
+        if not same_episode(a, b):
+            check(near_tie(card_hg, cpu_hg, q),
+                  f"gym: card and CPU episodes differ on {q!r}, not at a near tie")
+            ties += 1
+    obs_err = max(float(np.abs(x[0] - y[0]).max()) for a, b in zip(eps["card"], eps["cpu"])
+                  for x, y in zip(a, b))
+    check(launches["gym"]["binmax_cuda"] >= len(qs),
+          f"at least one dense_binmax launch per gym reset: {launches['gym']}")
+    n_steps = sum(len(e) - 1 for e in eps["card"])
+    out["gym"] = {"episodes": len(qs), "steps": n_steps, "near_ties": ties, "obs_err": obs_err,
+                  "launches": launches["gym"],
+                  **{f"{n}_{k}": pcts(v[n]) for n in ("card", "cpu")
+                     for k, v in (("reset", reset_ms), ("step", step_ms))}}
+    log(f"  (a) gym, {len(qs)} XL dev episodes x {n_steps} steps: card == CPU ({ties} near "
+        f"ties, obs within {obs_err:.2e}); step ms card {json.dumps(pcts(step_ms['card']))}, "
+        f"CPU {json.dumps(pcts(step_ms['cpu']))}; reset ms card "
+        f"{json.dumps(pcts(reset_ms['card']))}, CPU {json.dumps(pcts(reset_ms['cpu']))}; "
+        f"launches {launches['gym']}")
+
+    # (b) the gym against the device env on the card's tensors
+    reset_counts()
+    gt, w = card_hg.tensors(), SearchWeights.create(device=dev)
+    vq = qs[:VEC_QUESTIONS]
+    worst = [0.0, 0.0]
+    for seq in VEC_SEQUENCES + ((5,),):
+        state = vec_env.env_reset(gt, card_hg.encode_query_device(vq), w)
+        gyms = [AHRAGGymEnv(hg=card_hg, max_steps=6) for _ in vq]
+        obs = vec_env.observe(gt, state).cpu().numpy()
+        for g, q, o in zip(gyms, vq, obs):
+            worst[0] = max(worst[0], float(np.abs(g.reset(q)[0] - o).max()))
+        done = [False] * len(vq)
+        for a in seq:
+            state, dr, dd = vec_env.env_step(gt, state, torch.full((len(vq),), a, device=dev))
+            obs, dr, dd = (x.cpu().numpy() for x in (vec_env.observe(gt, state), dr, dd))
+            for i, g in enumerate(gyms):
+                if done[i]:
+                    continue
+                hvec, hr, hdone, _ = g.step(a)
+                check(abs(float(dr[i]) - hr) < 1e-5 and bool(dd[i]) == hdone,
+                      f"gym vs vec_env: reward or done differ at action {a} on {vq[i]!r}")
+                worst[1] = max(worst[1], abs(float(dr[i]) - hr))
+                if a != 5:       # the end action: rewards and dones only, as JAX's test
+                    err = float(np.abs(hvec - obs[i]).max())
+                    check(err <= 2e-3, f"gym vs vec_env: observations differ by {err} at "
+                          f"action {a} on {vq[i]!r}")
+                    worst[0] = max(worst[0], err)
+                done[i] = hdone
+    out["vec_env"] = {"questions": len(vq), "sequences": len(VEC_SEQUENCES) + 1,
+                      "obs_err": worst[0], "reward_err": worst[1]}
+    log(f"  (b) gym vs vec_env on the card, {len(vq)} questions x {len(VEC_SEQUENCES)} "
+        f"sequences + end: observations within {worst[0]:.2e}, rewards within "
+        f"{worst[1]:.2e}, dones equal")
+
+    # (c) the device-independent chain, card against CPU
+    trajs, policies, rows = {}, {}, {}
+    for name, _ in devices:
+        env = AHRAGGymEnv(hg=hgs[name], max_steps=6)
+        collect_gym(env, items, f"{name}_traj.jsonl", 0)
+        trajs[name] = [json.loads(ln) for ln in Path(f"{name}_traj.jsonl").read_text()
+                       .splitlines()]
+        quiet(train_rl.main, ["--traj", f"{name}_traj.jsonl", "--out", f"{name}_policy.json"])
+        policies[name] = json.loads(Path(f"{name}_policy.json").read_text())
+        probs = {int(k): float(v) for k, v in policies[name]["action_probs"].items()}
+        rows[name] = evaluate_episodes(AHRAGGymEnv(hg=hgs[name], max_steps=6), items,
+                                       probs=probs, seed=0)
+    ties = 0
+    for q, a, b, ra, rb in zip(qs, trajs["card"], trajs["cpu"], rows["card"], rows["cpu"]):
+        same = len(a["steps"]) == len(b["steps"]) and all(
+            (x["action"], x["reward"], x["obs_aux"]) == (y["action"], y["reward"], y["obs_aux"])
+            and max(abs(u - v) for u, v in zip(x["obs_vec"], y["obs_vec"])) <= 1e-5
+            for x, y in zip(a["steps"], b["steps"]))
+        if not (same and ra == rb):
+            check(near_tie(card_hg, cpu_hg, q), f"trajectories or eval rows differ on {q!r}, "
+                  "not at a near tie")
+            ties += 1
+    check(ties or policies["card"] == policies["cpu"],
+          "train_rl: card and CPU action frequencies differ")
+    bc = printed_json(train_bc.main, ["--traj", "card_traj.jsonl", "--out", "bc_card.pt",
+                                      "--device", str(dev)])
+    torch.cuda.synchronize(dev)
+    launches["vec_env_chain"] = read_counts()
+    check(np.isfinite(bc["final_loss"]), f"train_bc on the card: {bc}")
+    means = {k: float(np.mean([r["scores"][k] for r in rows["card"]]))
+             for k in ("contextual_recall", "contextual_relevancy", "overall")}
+    out["chain"] = {"near_ties": ties, "launches": launches["vec_env_chain"],
+                    "action_probs": policies["card"]["action_probs"],
+                    "bc": {k: bc[k] for k in ("n_samples", "final_loss")},
+                    "eval_policy_means": means}
+    log(f"  (c) collect_trajectories / train_rl / eval_rl_policy --policy: card == CPU "
+        f"({ties} near ties); action probs {json.dumps(policies['card']['action_probs'])}; "
+        f"train_bc on the card {json.dumps(out['chain']['bc'])}; eval means {json.dumps(means)}; "
+        f"launches of (b) and (c) {launches['vec_env_chain']}")
+
+    # (d) PPO on the host gym, on the card, over the XL train world
+    t0 = time.perf_counter()
+    train_hg = quiet(run_pipeline, str(SAMPLES / "synth_v4_sharedxl_corpus_train.txt"),
+                     "train/artifacts", "train/graph", device=dev)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    train_n_pad = train_hg.tensors().n_pad
+    train_qs = [json.loads(ln)["question"] for ln in
+                (SAMPLES / "synth_v4_sharedxl_train.jsonl").read_text().splitlines() if ln]
+    timed = {"step": [], "update": []}
+
+    class TimedGym(AHRAGGymEnv):
+        def step(self, action):
+            t0 = time.perf_counter()
+            res = super().step(action)
+            timed["step"].append((time.perf_counter() - t0) * 1e3)
+            return res
+
+    update = PPOLearner.update
+
+    def timed_update(self, *a, **kw):
+        t0 = time.perf_counter()
+        res = update(self, *a, **kw)
+        torch.cuda.synchronize(dev)
+        timed["update"].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    PPOLearner.update = timed_update
+    logs = []
+    reset_counts()
+    t0 = time.perf_counter()
+    learner = ppo_train(lambda: TimedGym(hg=train_hg, max_steps=6), train_qs,
+                        total_episodes=PPO_BATCHES, max_steps=6, ppo_cfg=PPOConfig(epochs=2),
+                        save_path="ppo/ppo_policy.pt", n_envs=4, log=logs.append, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    PPOLearner.update = update
+    launches["ppo"] = read_counts()
+    episodes = sum(s.startswith("[PPO] episode=") for s in logs)
+    batch_rewards = [float(s.split("mavg_ep_reward=")[1].split()[0]) for s in logs
+                     if "update mavg_ep_reward=" in s]
+    check(episodes == 4 * len(batch_rewards) > 0 and learner.in_dim == 84,
+          f"ppo_train: {episodes} episodes in {len(batch_rewards)} batches")
+    check(launches["ppo"]["binmax_cuda"] >= episodes,
+          f"at least one dense_binmax launch per gym reset: {launches['ppo']}")
+    check(all(np.isfinite(batch_rewards)), "finite batch rewards")
+    # resume: 2 batches, then a run resumed to 4 that restores the saved state to the bit
+    restored = []
+    restore = PPOLearner.restore_training_state
+
+    def checked_restore(self, path):
+        progress = restore(self, path)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        restored.append(all(torch.equal(v.cpu(), saved["params"][k])
+                            for k, v in self.model.state_dict().items())
+                        and self.opt.count == saved["opt_state"]["count"]
+                        and all(torch.equal(a.cpu(), b) for a, b in
+                                zip(self.opt.mu + self.opt.nu,
+                                    saved["opt_state"]["mu"] + saved["opt_state"]["nu"])))
+        return progress
+
+    PPOLearner.restore_training_state = checked_restore
+    resume_logs = []
+    for total, resume in ((2, False), (4, True)):
+        ppo_train(lambda: AHRAGGymEnv(hg=train_hg, max_steps=6), train_qs,
+                  total_episodes=total, max_steps=6, ppo_cfg=PPOConfig(epochs=2),
+                  save_path="ppo_resume/ppo_policy.pt", n_envs=4, resume=resume,
+                  log=resume_logs.append, device=dev)
+    PPOLearner.restore_training_state = restore
+    check(any("resumed at batch index 8" in s for s in resume_logs) and restored == [True],
+          f"resume: the resumed run restores the saved state bit for bit ({restored})")
+    out["ppo"] = {"train_build_s": build_s, "train_nodes": train_hg.number_of_nodes(),
+                  "train_n_pad": train_n_pad, "batches": len(batch_rewards),
+                  "episodes": episodes, "wall_s": wall, "episodes_per_s": episodes / wall,
+                  "step": pcts(timed["step"]), "update": pcts(timed["update"]),
+                  "batch_rewards": batch_rewards, "launches": launches["ppo"],
+                  "resume_batches": sum("update mavg" in s for s in resume_logs)}
+    log(f"  (d) XL train world built on the card in {build_s:.2f}s "
+        f"({train_hg.number_of_nodes()} nodes, n_pad {train_n_pad}); ppo_train: "
+        f"{len(batch_rewards)} batches, {episodes} episodes in {wall:.2f}s "
+        f"({episodes / wall:.1f} episodes/s); env step ms {json.dumps(pcts(timed['step']))}; "
+        f"update ms {json.dumps(pcts(timed['update']))}; batch rewards {batch_rewards}; "
+        f"launches {launches['ppo']}; resumed 2 -> 4 batches, state restored bit for bit")
+
+    # (e) the policy on held-out questions: eval_rl_policy and rl_transfer, on the card
+    reset_counts()
+    t0 = time.perf_counter()
+    prow = evaluate_episodes(AHRAGGymEnv(hg=card_hg, max_steps=6), items,
+                             ppo=PPOLearner.load("ppo/ppo_policy.pt", device=dev), seed=0)
+    eval_ms = (time.perf_counter() - t0) * 1e3 / len(items)
+    pmeans = {k: float(np.mean([r["scores"][k] for r in prow]))
+              for k in ("contextual_recall", "contextual_relevancy", "overall")}
+    t0 = time.perf_counter()
+    quiet(rl_transfer.main, ["--data", str(SAMPLES / "synth_v4_sharedxl_dev.jsonl"), "--model",
+                             "ppo/ppo_policy.pt", "--limit", str(TRANSFER_QUESTIONS),
+                             "--graph", "card/graph", "--strip-context", "--out",
+                             "transfer.json", "--device", str(dev)])
+    torch.cuda.synchronize(dev)
+    xfer_ms = (time.perf_counter() - t0) * 1e3 / (2 * TRANSFER_QUESTIONS)
+    launches["transfer"] = read_counts()
+    xfer = json.loads(Path("transfer.json").read_text())
+    keys = ("f1", "em", "retrieval_recall_at_10")
+    check(xfer["n"] == TRANSFER_QUESTIONS and all(
+        np.isfinite(xfer[r][k]) for r in ("rule", "ppo") for k in keys), f"rl_transfer {xfer}")
+    check(launches["transfer"]["binmax_cuda"] >= len(items) + 2 * TRANSFER_QUESTIONS,
+          f"(e) at least one dense_binmax launch per episode and answer: {launches['transfer']}")
+    out["transfer"] = {"eval_ppo_means": pmeans, "eval_ms_per_question": eval_ms,
+                       **{r: {k: xfer[r][k] for k in keys} for r in ("rule", "ppo")},
+                       "delta": {k: xfer["ppo_minus_rule"][k] for k in keys},
+                       "ms_per_question": xfer_ms, "launches": launches["transfer"]}
+    log(f"  (e) eval_rl_policy --ppo-model over {len(items)} dev questions on the card: "
+        f"{json.dumps(pmeans)}, {eval_ms:.1f} ms per question; rl_transfer --strip-context "
+        f"over {TRANSFER_QUESTIONS}: rule {json.dumps(out['transfer']['rule'])}, ppo "
+        f"{json.dumps(out['transfer']['ppo'])}, delta {json.dumps(out['transfer']['delta'])}, "
+        f"{xfer_ms:.1f} ms per question; launches {launches['transfer']}")
+
+    # (f) the knob policy: train on the card, evaluate, and steer run_benchmark
+    t0 = time.perf_counter()
+    kstats = train_knob_policy(str(REPORTS / "knob_rewards_v6_train_r5.json"),
+                               "knob/knob_policy.pt", steps=400, device=dev)
+    torch.cuda.synchronize(dev)
+    ktrain_s = time.perf_counter() - t0
+    kev = evaluate_policy(str(REPORTS / "knob_rewards_v6_dev_r5.json"), "knob/knob_policy.pt",
+                          device=dev)
+    cfg = load_config()
+    cfg["rl"]["inference"].update(use_knob_policy=True, knob_policy_path="knob/knob_policy.pt")
+    kitems = items[:TRANSFER_QUESTIONS]
+    reports, kms = {}, {}
+    for name, d in devices:
+        kms[name] = []
+        reset_counts()
+        reports[name] = quiet(bench.run_benchmark, "local", system="ah_rag",
+                              limit=TRANSFER_QUESTIONS,
+                              data_path=str(SAMPLES / "synth_v4_sharedxl_dev.jsonl"),
+                              graph_dir=f"{name}/graph", config=cfg, device=d,
+                              item_ms=kms[name])
+        torch.cuda.synchronize(dev)
+        if name == "card":
+            launches["knob"] = read_counts()
+    ties = 0
+    for a, b in zip(reports["card"]["items"], reports["cpu"]["items"]):
+        if a != b:
+            q = next(it["question"] for it in kitems if it["id"] == a["id"])
+            check(near_tie(card_hg, cpu_hg, q), f"knob benchmark rows differ on {q!r}, "
+                  "not at a near tie")
+            ties += 1
+    chosen = {}
+    for name, d in devices:
+        pred = load_knob_policy("knob/knob_policy.pt", device=d)
+        chosen[name] = [CONFIG_KNOBS.index(pred(it["question"])) for it in kitems]
+    check(chosen["card"] == chosen["cpu"], "knob choices card vs CPU")
+    check(launches["knob"]["binmax_cuda"] >= TRANSFER_QUESTIONS,
+          f"(f) at least one dense_binmax launch per question: {launches['knob']}")
+    kagg = {k: reports["card"]["aggregate"][0][k] for k in keys}
+    out["knob"] = {"train_s": ktrain_s, "train": kstats, "dev_eval": kev, "near_ties": ties,
+                   "configs_chosen": {str(c): chosen["card"].count(c)
+                                      for c in sorted(set(chosen["card"]))},
+                   "aggregate": kagg, "card": pcts(kms["card"]), "cpu": pcts(kms["cpu"]),
+                   "launches": launches["knob"]}
+    log(f"  (f) knob policy trained on the card in {ktrain_s:.2f}s: {json.dumps(kstats)}; "
+        f"v6 dev {json.dumps(kev)}; run_benchmark with it over {TRANSFER_QUESTIONS} dev "
+        f"questions: card == CPU ({ties} near ties), configs chosen "
+        f"{json.dumps(out['knob']['configs_chosen'])}, {json.dumps(kagg)}; per question card "
+        f"{json.dumps(pcts(kms['card']))}, CPU {json.dumps(pcts(kms['cpu']))}")
+
+    # (g) cluster_eval at the 10k hierarchy report's configuration, card against CPU
+    ce = {name: cluster_eval.run(CLUSTER_EVAL["n"], CLUSTER_EVAL["n_topics"],
+                                 CLUSTER_EVAL["noise_frac"], CLUSTER_EVAL["seed"],
+                                 n_super=CLUSTER_EVAL["n_super"],
+                                 super_frac=CLUSTER_EVAL["super_frac"], device=d)
+          for name, d in devices}
+    times = {name: {k: r.pop(k) for k in ("embed_s", "cluster_s", "l2_s")}
+             for name, r in ce.items()}
+    check(ce["card"] == ce["cpu"], "cluster_eval: card and CPU metrics differ")
+    l1 = ce["card"]["l1"]
+    quality = {"purity": l1["purity"], "nmi": l1["nmi"], "n_pred_topics": l1["n_pred_topics"],
+               "n_outliers": l1["n_outliers"]}
+    out["cluster_eval"] = {"times": times, "l1": quality, "jax_report_l1": CLUSTER_EVAL_REPORT,
+                           "super": ce["card"].get("super"), "l2": ce["card"]["l2"]}
+    log(f"  (g) cluster_eval {json.dumps(CLUSTER_EVAL)}: card == CPU; seconds "
+        f"{json.dumps(times)}; L1 {json.dumps(quality)} (the JAX report: "
+        f"{json.dumps(CLUSTER_EVAL_REPORT)}); super {json.dumps(ce['card'].get('super'))}")
+    out["launches"] = {k: sum(v[k] for v in launches.values()) for k in launches["gym"]}
     return out
 
 
@@ -2030,15 +2437,24 @@ def main() -> int:
     t = time.perf_counter()
     log("phase 12: build, answer and score on the card: the XL pipeline, 150 questions, "
         "per-question graphs, a fleet, k-means at 1M")
-    built = phase_build(dev, r1["arrs"].emb[:r1["arrs"].n_entities], ents_131k)
-    built["wall_s"] = time.perf_counter() - t
-    log(f"phase 12 done in {built['wall_s']:.1f}s")
+    with scratch_cwd():          # phase 12's graphs stay here for phase 13
+        built, xl_hgs = phase_build(dev, r1["arrs"].emb[:r1["arrs"].n_entities], ents_131k)
+        built["wall_s"] = time.perf_counter() - t
+        log(f"phase 12 done in {built['wall_s']:.1f}s")
+
+        t = time.perf_counter()
+        log("phase 13: the host training path on the card: the gym, ppo_train, the RL CLIs, "
+            "the knob policy and cluster_eval")
+        trained = phase_host_training(dev, xl_hgs)
+        trained["wall_s"] = time.perf_counter() - t
+        log(f"phase 13 done in {trained['wall_s']:.1f}s")
+    del xl_hgs
 
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
                    + hosted["launches"][k] + hosted["answer_launches"][k]
                    + loaded["launches"][k] + agent["launches"][k] + answered["launches"][k]
-                   + built["launches"][k] for k in rows}
+                   + built["launches"][k] + trained["launches"][k] for k in rows}
     kernels = []
     for name, source, replaces in (
             ("binmax2_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:651"),
@@ -2068,7 +2484,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -245,17 +245,52 @@ def test_benchmark_per_question_graphs_match_jax(tmp_path, monkeypatch,
     assert {r["system"] for r in t["items"]} == {"ah_rag", "naive"}
 
 
-def test_benchmark_refuses_network_datasets_and_knob_policy(film, tmp_path, monkeypatch):
+def _who_year_knob_policy(path):
+    """A flax knob policy trained by the JAX package on a matrix where
+    who-questions reward config 1 and the others config 2."""
+    from ahrag_tpu.agent.knob_policy import train_knob_policy
+    items = []
+    for i, q in enumerate(["Who directed Ed Wood?", "Who is Tim Burton?",
+                           "Which film did Scott Derrickson direct?",
+                           "When was Doctor Strange released?"] * 8):
+        best = 1 if q.startswith("Who") else 2
+        items.append({"id": f"it{i}", "question": q, "configs": [
+            {"config": str(c), "f1": 90.0 if c == best else 30.0} for c in range(6)]})
+    matrix = path.parent / "who_year.json"
+    matrix.write_text(json.dumps({"items": items}))
+    train_knob_policy(str(matrix), str(path), steps=200)
+
+
+@pytest.mark.parametrize("policy", ["v6", "who_year"])
+def test_benchmark_refuses_network_datasets_and_runs_the_knob_policy(film_graphs, tmp_path,
+                                                                     monkeypatch, policy):
+    """HotpotQA/TriviaQA by name are refused (they need the network); with
+    ``rl.inference.use_knob_policy`` the port reads the same flax checkpoint
+    (the repo's v6 policy, or one the JAX package trains here) and its rows
+    equal the JAX package's."""
     with pytest.raises(RuntimeError, match="network"):
         tbench.run_benchmark("hotpotqa", device="cpu")
     with pytest.raises(ValueError, match="Unsupported"):
         tbench.load_dataset("squad")
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "kp.msgpack").write_bytes(b"")
-    cfg = {"rl": {"inference": {"use_knob_policy": True,
-                                "knob_policy_path": str(tmp_path / "kp.msgpack")}}}
-    with pytest.raises(NotImplementedError, match="knob policy"):
-        tbench.run_system("ah_rag", "Who directed Ed Wood?", cfg, film[1])
+    if policy == "v6":
+        kp = str(SAMPLES.parent / "checkpoints" / "knob_policy_v6.msgpack")
+    else:
+        kp = str(tmp_path / "kp.msgpack")
+        _who_year_knob_policy(tmp_path / "kp.msgpack")
+    cfg = {"rl": {"inference": {"use_knob_policy": True, "knob_policy_path": kp}},
+           "evaluation": {"max_concurrency": 1}}
+    data = str(SAMPLES / "mini_questions.jsonl")
+    j = jbench.run_benchmark("local", system="ah_rag", limit=5, data_path=data,
+                             graph_dir=film_graphs[0], judge_sample=0.0, config=cfg)
+    t = tbench.run_benchmark("local", system="ah_rag", limit=5, data_path=data,
+                             graph_dir=film_graphs[1], judge_sample=0.0, config=cfg,
+                             device="cpu")
+    assert_same_report(j, t)
+    from ahrag_tpu_torch.agent.knob_policy import load_knob_policy
+    chosen = {load_knob_policy(kp, device="cpu")(json.loads(ln)["question"]) == {}
+              for ln in open(data)}
+    assert False in chosen          # the policy steers away from the default knobs
 
 
 def _exit_code(main) -> int:

@@ -38,6 +38,14 @@ BUILD_MODULES = ("ahrag_tpu_torch.schema", "ahrag_tpu_torch.extract",
                  "ahrag_tpu_torch.eval.answer_eval", "ahrag_tpu_torch.cli.benchmark",
                  "ahrag_tpu_torch.cli.eval_gate", "ahrag_tpu_torch.agent.fleet",
                  "ahrag_tpu_torch.utils.jax_random")
+# the host training path, the synthetic worlds and the clustering eval
+RL_HOST_MODULES = ("ahrag_tpu_torch.agent.gym", "ahrag_tpu_torch.agent.knob_policy",
+                   "ahrag_tpu_torch.utils.flax_msgpack", "ahrag_tpu_torch.cli.train_ppo",
+                   "ahrag_tpu_torch.cli.train_bc", "ahrag_tpu_torch.cli.train_rl",
+                   "ahrag_tpu_torch.cli.collect_trajectories",
+                   "ahrag_tpu_torch.cli.eval_rl_policy", "ahrag_tpu_torch.cli.build_rl_snapshot",
+                   "ahrag_tpu_torch.cli.rl_transfer", "ahrag_tpu_torch.eval.synth",
+                   "ahrag_tpu_torch.eval.clustering", "ahrag_tpu_torch.cli.cluster_eval")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -72,7 +80,29 @@ from ahrag_tpu_torch.agent.fleet import build_question_fleet
 from ahrag_tpu_torch.cli import benchmark as cli_benchmark, demo as cli_demo
 from ahrag_tpu_torch.cli import eval_gate as cli_gate
 from ahrag_tpu_torch.ops.kmeans import spherical_kmeans
-calls = [lambda: cli_demo.run_pipeline("corpus_that_is_not_there.txt"),
+from ahrag_tpu_torch.agent.gym import AHRAGGymEnv
+from ahrag_tpu_torch.agent.ppo import ppo_train
+from ahrag_tpu_torch.agent.bc import train_bc
+from ahrag_tpu_torch.agent.knob_policy import load_knob_policy, train_knob_policy
+from ahrag_tpu_torch.cli import cluster_eval as cli_cluster, collect_trajectories as cli_collect
+from ahrag_tpu_torch.cli import eval_rl_policy as cli_eval_rl, rl_transfer as cli_transfer
+from ahrag_tpu_torch.cli import train_bc as cli_bc, train_ppo as cli_ppo
+calls = [lambda: AHRAGGymEnv(graph_dir="graph_that_is_not_there"),
+         lambda: ppo_train(lambda: AHRAGGymEnv(graph_dir="graph_that_is_not_there"), ["q"]),
+         lambda: train_bc("ev.json", "bc_out"),
+         lambda: load_knob_policy("ev.json"), lambda: train_knob_policy("ev.json", "kp_out"),
+         lambda: cli_cluster.run(50, 2, 0.05, 3),
+         lambda: cli_cluster.main(["--n", "50", "--topics", "2"]),
+         lambda: cli_collect.main(["--data", "ev.json", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_collect.main(["--data", "ev.json", "--graph", "graph_that_is_not_there",
+                                   "--device"]),
+         lambda: cli_eval_rl.main(["--data", "ev.json", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_transfer.main(["--data", "ev.json", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_bc.main(["--traj", "ev.json"]),
+         lambda: cli_ppo.main(["--data", "ev.json", "--graph", "graph_that_is_not_there"]),
+         lambda: cli_ppo.main(["--data", "ev.json", "--graph", "graph_that_is_not_there",
+                               "--device"]),
+lambda: cli_demo.run_pipeline("corpus_that_is_not_there.txt"),
          lambda: SemanticAggregator(),
          lambda: spherical_kmeans(np.zeros((4, 2), np.float32), 2),
          lambda: cli_benchmark.run_benchmark("local", data_path="ev.json"),
@@ -113,7 +143,8 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(_GUARD.format(blocked=BLOCKED,
-                              agent=AGENT_MODULES + ANSWER_MODULES + BUILD_MODULES), ROOT)
+                              agent=AGENT_MODULES + ANSWER_MODULES + BUILD_MODULES
+                              + RL_HOST_MODULES), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
@@ -195,7 +226,12 @@ NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/mo
           "ahrag_tpu_torch/aggregate/", "ahrag_tpu_torch/eval/",
           "ahrag_tpu_torch/cli/demo.py", "ahrag_tpu_torch/cli/benchmark.py",
           "ahrag_tpu_torch/cli/eval_gate.py", "ahrag_tpu_torch/agent/fleet.py",
-          "ahrag_tpu_torch/utils/jax_random.py")
+          "ahrag_tpu_torch/utils/jax_random.py", "ahrag_tpu_torch/agent/gym.py",
+          "ahrag_tpu_torch/agent/knob_policy.py", "ahrag_tpu_torch/utils/flax_msgpack.py",
+          "ahrag_tpu_torch/cli/train_ppo.py", "ahrag_tpu_torch/cli/train_bc.py",
+          "ahrag_tpu_torch/cli/train_rl.py", "ahrag_tpu_torch/cli/collect_trajectories.py",
+          "ahrag_tpu_torch/cli/eval_rl_policy.py", "ahrag_tpu_torch/cli/build_rl_snapshot.py",
+          "ahrag_tpu_torch/cli/rl_transfer.py", "ahrag_tpu_torch/cli/cluster_eval.py")
 PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
 HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
 # the LLM client's network retry: the one scope where catching any error is
