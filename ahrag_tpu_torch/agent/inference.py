@@ -317,7 +317,7 @@ class InferenceEngine:
             "reader_ckpt": answer_cfg.get("reader_ckpt"),
             "reader_min_conf": answer_cfg.get("reader_min_conf", 0.25),
         }
-        answer = AnswerGenerator().generate(query, context, gen_cfg)
+        answer = AnswerGenerator(device=self.env.hg.device).generate(query, context, gen_cfg)
         summary = self.env.end_episode()
         out = {
             "query": query,

@@ -7,10 +7,15 @@ divides by ``norm + 1e-6`` and scales whenever the norm exceeds the limit,
 optax divides by the norm itself and leaves gradients alone when the norm is
 below it. Adam is optax's ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8 added
 outside the square root, bias-corrected moments) followed by ``-lr``.
+With ``weight_decay`` and a schedule for ``lr`` it is ``optax.adamw(schedule,
+weight_decay)`` (the span reader's trainer): ``weight_decay * param`` is added
+to the Adam update, and the schedule is read at the count of updates made
+before this one (so optax's first step takes ``schedule(0)``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -21,11 +26,13 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class Adam:
-    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 lr: Union[float, Callable[[int], float]],
                  max_norm: Optional[float] = None, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8) -> None:
+                 eps: float = 1e-8, weight_decay: float = 0.0) -> None:
         self.params: List[torch.nn.Parameter] = list(params)
         self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
+        self.weight_decay = weight_decay
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -42,6 +49,7 @@ class Adam:
             g_norm = global_norm(grads)
             keep = g_norm < self.max_norm
             grads = [torch.where(keep, g, (g / g_norm) * self.max_norm) for g in grads]
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
         bc1 = 1.0 - self.b1 ** self.count
         bc2 = 1.0 - self.b2 ** self.count
@@ -49,7 +57,9 @@ class Adam:
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(-self.lr * update)
+            if self.weight_decay:
+                update = update + self.weight_decay * p
+            p.add_(-lr * update)
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mu": [m.cpu() for m in self.mu],
@@ -59,3 +69,21 @@ class Adam:
         self.count = int(state["count"])
         for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
             dst.copy_(src)
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` at ``decay_steps``, held there."""
+    alpha = end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / cos_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+    return schedule

@@ -1,8 +1,9 @@
 """Answer generation with citation enforcement and a deterministic fallback.
 
 The port's copy of ``ahrag_tpu/answer/generator.py``. Two differences: the
-learned span reader (``answer.reader_ckpt``) is not ported yet, so a
-configured checkpoint raises; and an LLM reply is asked through
+learned span reader (``answer.reader_ckpt``) runs on the generator's
+``device``, and a configured checkpoint that is missing raises where the JAX
+package answers without it; and an LLM reply is asked through
 ``chat_or_none``, so a failed call falls back as the JAX package's caught
 exception does. Behavior parity with the reference generator (answer/generator.py:14-217):
 
@@ -33,6 +34,11 @@ _NATIONALITY_HINTS = ("american", "british", "chinese", "french", "german", "ita
 
 
 class AnswerGenerator:
+    def __init__(self, device=None) -> None:
+        """``device`` is where a configured span reader runs (``cuda`` unless
+        the caller names another); nothing else here touches a device."""
+        self.device = device
+
     def _build_prompt(self, query: str, context: Dict[str, Any]) -> str:
         schema = {"answer": "direct, concise conclusion (state clearly if evidence is "
                             "insufficient)",
@@ -110,15 +116,18 @@ class AnswerGenerator:
         # routed every comparison to _synthesize's hardcoded nationality list,
         # which silently failed on any nationality outside its 7 entries.
         from ahrag_tpu_torch.answer.extractive import extract_answer
-        # the learned reader (the JAX package's answer/reader.py, opt-in via
-        # answer.reader_ckpt) is not ported: refuse a configured checkpoint
-        # rather than answer without the stage the caller asked for
+        # learned reader (answer/reader.py): the schema-free middle stage —
+        # opt-in via answer.reader_ckpt; a configured checkpoint that is
+        # missing raises
+        reader = None
         if cfg and cfg.get("reader_ckpt"):
-            raise NotImplementedError(
-                "answer.reader_ckpt is set, but the learned span reader is not "
-                "ported to ahrag_tpu_torch yet; unset it to answer without it")
+            from ahrag_tpu_torch.answer.reader import get_reader
+            reader = get_reader(str(cfg["reader_ckpt"]),
+                                float(cfg.get("reader_min_conf", 0.25)),
+                                device=self.device)
         span = extract_answer(query, context.get("context_text", ""),
                               allow_span_scoring=not is_comparison,
+                              reader=reader,
                               reader_only=bool(cfg
                                                and cfg.get("reader_only")))
         if span == "unanswerable":

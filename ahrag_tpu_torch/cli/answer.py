@@ -40,7 +40,7 @@ def main(argv=None) -> None:
         "enable_kept_spans": answer_cfg.get("enable_kept_spans", True),
         "summarizer_max_tokens": answer_cfg.get("summarizer_max_tokens", 256),
     })
-    answer = AnswerGenerator().generate(args.query, context, {
+    answer = AnswerGenerator(device=hg.device).generate(args.query, context, {
         "use_llm": args.llm or answer_cfg.get("use_llm", False),
         "temperature": answer_cfg.get("temperature", 0.1),
         "max_retries": answer_cfg.get("max_retries", 2),

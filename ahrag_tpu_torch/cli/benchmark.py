@@ -123,8 +123,8 @@ def run_system(system: str, query: str, cfg: Dict[str, Any], hg) -> Dict[str, An
         from ahrag_tpu_torch.answer.generator import AnswerGenerator
         from ahrag_tpu_torch.baselines.naive import NaiveRAG
         top_k = int(cfg.get("evaluation", {}).get("naive_rag_top_k", 5))
-        return NaiveRAG(hg, AnswerGenerator()).run(query, top_k=top_k,
-                                                   gen_cfg=cfg.get("answer", {}))
+        return NaiveRAG(hg, AnswerGenerator(device=hg.device)).run(
+            query, top_k=top_k, gen_cfg=cfg.get("answer", {}))
     raise ValueError(f"Unknown system: {system}")
 
 

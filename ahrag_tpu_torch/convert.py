@@ -68,3 +68,19 @@ def policy_params_from_numpy(tree: Dict[str, Dict[str, object]]) -> Dict[str, to
             np.array(layer["kernel"], np.float32).T.copy())
         out[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
     return out
+
+
+def flax_params_from_numpy(tree: Dict[str, object], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (numpy or JAX arrays; with or without its
+    top-level ``"params"`` key) as the ``state_dict`` of the port's
+    counterpart module (``models/flax_layers.py`` keeps flax's names and
+    shapes): each leaf under its dotted path, float32, on the CPU."""
+    if not prefix and set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            out.update(flax_params_from_numpy(sub, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = torch.from_numpy(np.array(sub, np.float32))
+    return out

@@ -451,7 +451,8 @@ class HierarchicalGraph:
                              np.asarray(z["assoc_w"], dtype=np.float32))
             if "lsa" in z:
                 hg._lsa = np.asarray(z["lsa"], dtype=np.float32)
-            elif hg._embeddings and projection is None:
+            elif (hg._embeddings and projection is None
+                  and not str(hg.vector_index.get("model", "")).startswith("minilm")):
                 raise ValueError(
                     f"{emb_path} holds embeddings but no 'lsa' basis: its documents "
                     "were projected through the encoder's Gaussian, which the JAX "
@@ -679,13 +680,15 @@ class HierarchicalGraph:
                     (nt == "hyperedge" and include_hyperedges)):
                 eligible_ids.append(nid)
 
-        full_build = use_idf and (self._idf is None or not upsert_only)
+        # encoders without a lexical half (MiniLM) take no corpus statistics
+        supports_idf = use_idf and hasattr(enc, "document_frequencies")
+        full_build = supports_idf and (self._idf is None or not upsert_only)
         if full_build and len(eligible_ids) >= 2:
             texts = [self._embedding_text(nid) for nid in eligible_ids]
             df = enc.document_frequencies(texts)
             n_docs = len(texts)
             self._idf = (np.log((1.0 + n_docs) / (1.0 + df)) + 1.0).astype(np.float32)
-            if train_expansion:
+            if train_expansion and hasattr(enc, "train_associations"):
                 self._assoc = enc.train_associations(texts)
             if fit_lsa:
                 self._lsa = enc.fit_projection(texts, idf=self._idf)
@@ -700,10 +703,10 @@ class HierarchicalGraph:
                 todo_ids.append(nid)
                 todo_texts.append(self._embedding_text(nid))
         if todo_ids:
-            if use_idf:
+            if supports_idf:
                 mat = enc.encode(todo_texts, idf=self._idf, basis=self.query_basis())
             else:
-                mat = enc.encode(todo_texts, basis=self._projection)
+                mat = enc.encode(todo_texts, **self._projection_kw())
             for nid, row in zip(todo_ids, mat):
                 self._embeddings[nid] = np.asarray(row, dtype=np.float32)
                 prev[nid] = self._index_key(nid)
@@ -784,12 +787,17 @@ class HierarchicalGraph:
             return self._assoc
         return self._assoc if len(self._embeddings) > self._encoder().dim else None
 
+    def _projection_kw(self) -> Dict[str, torch.Tensor]:
+        """The projection given to ``load`` as an encode keyword, if any (an
+        encoder without a lexical half never has one)."""
+        return {} if self._projection is None else {"basis": self._projection}
+
     def encode_query_device(self, texts: List[str]) -> torch.Tensor:
         enc = self._encoder()
-        if self._idf is not None:
+        if hasattr(enc, "document_frequencies") and self._idf is not None:
             return enc.encode_device(texts, idf=self._idf, assoc=self.query_assoc(),
                                      basis=self.query_basis())
-        return enc.encode_device(texts, basis=self._projection)
+        return enc.encode_device(texts, **self._projection_kw())
 
     def encode_query(self, texts: List[str]) -> np.ndarray:
         """Encode queries in the index's embedding space (the stored corpus

@@ -13,8 +13,10 @@ Port of ``ahrag_tpu/serve.py``:
 - ``serve_http``: JSON endpoints POST /search {"query" | "queries"},
   POST /beam, POST /answer, GET /healthz and GET /stats.
 
-The service pipelines three stages, as in the JAX package: featurize + pack
-on the host; upload and dispatch; read back and assemble the results. In
+Over the hashed encoder the service pipelines three stages, as in the JAX
+package: featurize + pack on the host; upload and dispatch; read back and
+assemble the results. Over the learned and MiniLM encoders it runs one stage
+(``_process_batch``): encode, one ``hybrid_search_batch``, assemble. In
 the JAX package the dispatch returns before the device finishes; here
 ``encode_and_search`` waits once inside, for the certificate of the seed
 stage (``refined_masked_topk``), so the dispatch stage holds its thread for
@@ -462,13 +464,22 @@ class RetrievalService:
         self._w_cached = self.hg._resolve_weights()
         self._member_top_m = int(self.hg.search_params.get("member_top_m", 5))
         self._enc = self.hg._encoder()
+        self._default_top_k = 5
+        # the hashed encoder fuses its encode into the search; others (the
+        # learned and MiniLM encoders) encode on their own, in one stage
+        self._hashed = hasattr(self._enc, "buckets")
+        if not self._hashed:
+            self._batcher = MicroBatcher(self._process_batch, max_batch=max_batch,
+                                         max_wait_s=max_wait_s,
+                                         coalesce_quiet_s=self._coalesce[0],
+                                         coalesce_cap_s=self._coalesce[1])
+            return
         self._assoc = self.hg.query_assoc()
         idf = (np.ones(self._enc.buckets, np.float32) if self.hg._idf is None
                else np.asarray(self.hg._idf, np.float32))
         self._idf_dev = torch.from_numpy(idf).to(self.device)
         basis = self.hg.query_basis()
         self._proj_dev = self._enc._proj if basis is None else basis
-        self._default_top_k = 5
         # three stages: featurize + pack in the coalescing worker, upload +
         # dispatch in two threads, read-back + assembly in three
         self._batcher = MicroBatcher(max_batch=max_batch, max_wait_s=max_wait_s,
@@ -522,12 +533,37 @@ class RetrievalService:
             packed = out.cpu().numpy()
         self._observe_rtt(time.perf_counter() - t0)
         with self.timers.timed("assemble"):
-            idx = packed[..., 0].astype(np.int64)
-            score, sem = packed[..., 1], packed[..., 2]
-            ok = packed[..., 3] > 0.5
-            return [[self.hg._result_entry(int(i), float(s), float(m))
-                     for i, s, m, o in zip(idx[b], score[b], sem[b], ok[b]) if o]
-                    for b in range(n)]
+            return self._entries(n, packed[..., 0].astype(np.int64), packed[..., 1],
+                                 packed[..., 2], packed[..., 3] > 0.5)
+
+    def _entries(self, n: int, idx, score, sem, ok) -> List[List[Dict[str, Any]]]:
+        """The result entries of the first ``n`` rows of a batch's [B, k]
+        ids, scores, semantic scores and valid flags."""
+        return [[self.hg._result_entry(int(i), float(s), float(m))
+                 for i, s, m, o in zip(idx[b], score[b], sem[b], ok[b]) if o]
+                for b in range(n)]
+
+    def _process_batch(self, queries: List[str]) -> List[List[Dict[str, Any]]]:
+        """The single stage of encoders without hashed buckets: encode the
+        queries padded to the bucket (``hg.encode_query_device``), one
+        ``hybrid_search_batch``, then the result entries. The first call at
+        each bucket is timed as ``search_batch_warmup`` and does not feed the
+        coalesce cap."""
+        n = len(queries)
+        bucket = self._bucket(n)
+        timer = "search_batch" if bucket in self._warm_buckets else "search_batch_warmup"
+        t0 = time.perf_counter()
+        with self.timers.timed(timer):
+            q = self.hg.encode_query_device(queries + [""] * (bucket - n))
+            res = hybrid_search_batch(self.gt, q, self._w_cached,
+                                      top_k=self._default_top_k,
+                                      member_top_m=self._member_top_m)
+            rows = [t.cpu().numpy() for t in (res.reranked_idx, res.reranked_score,
+                                              res.reranked_sem, res.reranked_valid)]
+        if bucket in self._warm_buckets:
+            self._observe_rtt(time.perf_counter() - t0)
+        self._warm_buckets.add(bucket)
+        return self._entries(n, *rows)
 
     def search(self, query: str) -> List[Dict[str, Any]]:
         """One query, coalesced with concurrent callers into one device batch.
@@ -536,7 +572,9 @@ class RetrievalService:
             return self._batcher.submit(query, timeout_s=self.request_timeout_s)
 
     def search_many(self, queries: List[str]) -> List[List[Dict[str, Any]]]:
-        """A batch of queries through the three stages in the caller's thread."""
+        """A batch of queries through the stages in the caller's thread."""
+        if not self._hashed:
+            return self._process_batch(queries)
         return self._finalize_batch(self._upload_dispatch(self._featurize_batch(queries)))
 
     def beam(self, query: str, beam_width: int = 8, depth: int = 3,

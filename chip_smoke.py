@@ -84,7 +84,7 @@ print their wall time:
  11. question answering: the XL dev world (``samples/synth_v4_sharedxl_*``,
      1,835 titled paragraphs as named entities under topic summaries of 64 and
      communities of 8: 1,868 nodes) built and indexed by the port on the card,
-     saved and loaded onto the CPU; its 150 dev questions through
+     saved and loaded onto the CPU; its first 96 dev questions (of 150) through
      ``RetrievalService.answer`` on the card and on the CPU (answer, rationale,
      citations, retrieved nodes, evidence ids and context text equal; a
      difference passes only as a counted near tie of two scores within 1e-5),
@@ -100,8 +100,8 @@ print their wall time:
      ``structure.json`` and ``meta.json`` byte for byte equal, the index's
      ids, IDF and associations equal, its embeddings and LSA basis within
      1e-5; n_pad 6,144, so every one-query search goes through
-     ``dense_binmax``); ``run_benchmark(system="both")`` over the 150 dev
-     questions, over the card's graph on the card and the CPU's on the CPU
+     ``dense_binmax``); ``run_benchmark(system="both")`` over the first 96 dev
+     questions (of 150), over the card's graph on the card and the CPU's on the CPU
      (rows and retrieved nodes equal, near ties counted; aggregate F1, EM and
      recall@10; per-question ms; at least one ``dense_binmax`` launch per
      ah_rag question); ``run_benchmark(system="ah_rag")`` over the first 32
@@ -130,6 +130,22 @@ print their wall time:
      that policy over 32 dev questions, card against CPU; and
      ``cluster_eval.run`` at 10,000 entities, 48 topics, 8 super-topics, card
      against CPU, beside the JAX report's L1 quality;
+ 14. the learned models, each step on the card and on the CPU (the CPU side in
+     two processes of their own, spawned with the card hidden, alongside):
+     the sample corpus through ``ContrastiveEncoder`` and as a learned-encoder
+     graph (D 768, n_pad 5,120, float32); the two shipped readers' logits on
+     64 featurized v5 TEST reads; the reader ensemble alone over the 120 v5
+     TEST items (answers equal, F1/EM beside the JAX package's); the same
+     items through ``run_benchmark`` with the ensemble as the answer stage
+     (reports equal); the learned graph behind the single-stage
+     ``RetrievalService`` at buckets 1/4/64/128/256 (``dense_binmax`` and
+     ``dense_binmax2`` at D 768; ids equal, near ties counted) and under 1 and
+     32 callers; ``tools/encoder_recall_eval.py``'s learned cells over 32 v6
+     dev items (rows equal); MiniLM from a seeded init over the 4,050 lines;
+     the reader's and the contrastive encoder's trainers at full width from
+     the same initial weights and draws (losses within 1e-4 relatively); and
+     both bin-max kernels at the learned graph's shape with their bounds and
+     library calls;
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
@@ -148,6 +164,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1462,6 +1479,7 @@ def phase_agent(dev, r1, gt_cpu, smi: str) -> dict:
 
 
 HOST_GRAPH_QUESTIONS = 32      # answers over phase 8's graph (the kernel path)
+XL_ANSWER_QUESTIONS = 96       # phase 11: XL dev questions answered (of 150; cut for phase 14)
 
 
 def timed_answers(svc, queries) -> tuple:
@@ -1498,7 +1516,8 @@ def pcts(ms) -> dict:
 def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
     """Question answering on the card. The XL dev world (``xl_graph``, 1,868
     nodes) built and indexed by the port on the card, saved and loaded onto the
-    CPU; its 150 dev questions through ``RetrievalService.answer`` on the card
+    CPU; its first ``XL_ANSWER_QUESTIONS`` dev questions through
+    ``RetrievalService.answer`` on the card
     and on the CPU, answer, rationale,
     citations, retrieved nodes, evidence ids and context text equal; per-answer
     latency, searches per answer, gold containment and token F1; the card's
@@ -1512,7 +1531,7 @@ def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
     from ahrag_tpu_torch.graph import HierarchicalGraph
     from ahrag_tpu_torch.serve import RetrievalService
     from ahrag_tpu_torch.utils import profiling
-    items = xl_questions()
+    items = xl_questions()[:XL_ANSWER_QUESTIONS]
     qs = [it["question"] for it in items]
     t0 = time.perf_counter()
     xl = xl_graph(HierarchicalGraph(encoder_name="hashed", device=dev))
@@ -1607,7 +1626,7 @@ def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
         "host_graph": {"card": pcts(hcard_ms), "cpu": pcts(hcpu_ms),
                        "near_ties": host_ties, "launches": host_counts}}
 
-XL_BENCH_QUESTIONS = 150       # phase 12: every shared-KB dev question
+XL_BENCH_QUESTIONS = 96        # phase 12: shared-KB dev questions (of 150; cut for phase 14)
 PER_QUESTION_ITEMS = 32        # phase 12: per-question graphs (synth_v4_dev)
 FLEET_ITEMS = 16               # phase 12: per-question graphs stacked
 GATE_V4 = (90.0, 0.85)         # ``make gate-v4``'s F1 and faithfulness bars
@@ -1671,7 +1690,8 @@ def phase_build(dev, ents_1m, ents_131k) -> tuple:
     """Build, answer and score on the card. (1) ``run_pipeline`` over the XL
     dev world on the card and on the CPU: stage seconds, node counts, n_pad,
     every artifact byte-equal and the saved graphs equal. (2)
-    ``run_benchmark(system="both")`` over its 150 dev questions, over the
+    ``run_benchmark(system="both")`` over its first ``XL_BENCH_QUESTIONS`` dev
+    questions, over the
     card's graph on the card and the CPU's on the CPU: rows and retrieved
     nodes equal (near ties counted), aggregate F1/EM/recall@10, per-question
     ms, at least one ``dense_binmax`` launch per ``ah_rag`` question. (3)
@@ -1721,7 +1741,7 @@ def phase_build(dev, ents_1m, ents_131k) -> tuple:
         f"(max |card - CPU| {json.dumps(same['max_abs_diff'])})")
     out["xl_build"] = {"stats": stats, "n_pad": n_pad, "stages": stages, **same}
 
-    # (2) answer and score the 150 dev questions over each device's graph
+    # (2) answer and score the dev questions over each device's graph
     items = xl_questions()[:XL_BENCH_QUESTIONS]
     questions = {it["id"]: it["question"] for it in items}
     answers = {"card": {}, "cpu": {}}
@@ -2251,6 +2271,482 @@ def phase_host_training(dev, hgs) -> dict:
     return out
 
 
+# phase 14: the learned models
+ROOT = Path(__file__).resolve().parent
+READER_ENSEMBLE = ";".join(str(ROOT / "checkpoints" / f) for f in ("reader.msgpack",
+                                                                   "reader_b.msgpack"))
+ENCODER_CKPT = str(ROOT / "checkpoints" / "encoder.msgpack")
+V5_TEST = SAMPLES / "synth_v5_test.jsonl"   # 120 items: the reader, alone and arbitrated
+V6_DEV = SAMPLES / "synth_v6_dev.jsonl"
+READER_READS = 64              # featurized v5 reads whose logits are held card against CPU
+RECALL_ITEMS = 32              # v6 dev items through the learned recall cells (of 120)
+LEARNED_BUCKETS = (1, 4, 64, 128, 256)   # dense_binmax at 1/4/64, dense_binmax2 at 128/256
+LEARNED_LOADS = ((1, 256), (32, 32))     # callers x requests on the learned service
+MINILM_CPU_LINES = 256         # MiniLM lines encoded on the CPU too (the card encodes 4,050)
+READER_TRAIN = dict(n_train=2048, n_val=256, batch=128, steps=64, lr=3e-4, seed=7)
+ENCODER_TRAIN = dict(n_pairs=16384, batch=512, steps=20, lr=3e-4, temp=0.07, seed=7)
+CPU_TRAIN_STEPS = 4            # training steps the CPU repeats (the card runs them all)
+NOHINT = {"rescue_top_n": 0, "rescue_clause_top_n": 0, "hops": 0}   # encoder_recall_eval
+RECALL_CELLS = (("learned_nohints", NOHINT), ("learned_hints", {}))
+# the JAX package on the CPU (recorded in PERF.md §6): v5 TEST reader alone and
+# arbitrated F1/EM over 120 items, v6 dev learned cells over the first 32
+JAX_CPU = {"reader_alone": {"f1": 76.63, "em": 75.0},
+           "arbitrated": {"f1": 95.83, "em": 95.83},
+           "learned_nohints": {"recall_at_10": 0.9219, "mean_f1": 75.39},
+           "learned_hints": {"recall_at_10": 0.9844, "mean_f1": 78.52}}
+
+
+def v5_items() -> list:
+    return [json.loads(ln) for ln in V5_TEST.read_text().splitlines() if ln.strip()]
+
+
+def v5_sentences(item) -> list:
+    """An item's raw context as the reader reads it alone
+    (``tools/calibrate_reader.py``): one ``[DETAIL:p<i>]`` line per
+    paragraph, cleaned into sentences."""
+    from ahrag_tpu_torch.answer.extractive import _clean_sentences
+    ctx = "\n".join(f"[DETAIL:p{i}] " + " ".join(para)
+                    for i, para in enumerate(item["context"]["sentences"]))
+    return _clean_sentences(ctx)
+
+
+def reader_batch():
+    """The first ``READER_READS`` v5 TEST reads, featurized and stacked."""
+    from ahrag_tpu_torch.models.reader.features import featurize, stack
+    return stack([featurize(it["question"], v5_sentences(it))[0]
+                  for it in v5_items()[:READER_READS]])
+
+
+def reader_logits(dev) -> tuple:
+    """Both shipped readers' (start, end) logits of ``reader_batch()`` on
+    ``dev`` as numpy, and the ms of one B = 64 forward of the first."""
+    import torch
+    from ahrag_tpu_torch.models.reader.model import SpanReader
+    fb = reader_batch()
+    out, ms = [], None
+    for path in READER_ENSEMBLE.split(";"):
+        model = SpanReader.from_checkpoint(path, device=dev)
+        args = [torch.from_numpy(x).to(dev) for x in fb]
+        with torch.no_grad():
+            s, e = model(*args)
+            if ms is None:
+                ms = host_ms(lambda: sync(model(*args)), 5)[0]
+        out.append((s.cpu().numpy(), e.cpu().numpy()))
+    return out, fb.ev_mask, ms
+
+
+def sync(x):
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return x
+
+
+def reader_alone(dev) -> tuple:
+    """``ReaderAnswerer(ensemble, min_conf=0)`` over every v5 TEST item's raw
+    context on ``dev``: ((answer, confidence) per item, ms per item)."""
+    from ahrag_tpu_torch.answer.reader import ReaderAnswerer
+    reader = ReaderAnswerer(READER_ENSEMBLE, min_conf=0.0, device=dev)
+    out, ms = [], []
+    for it in v5_items():
+        sents = v5_sentences(it)
+        t0 = time.perf_counter()
+        out.append(reader.answer(it["question"], sents))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def reader_config() -> dict:
+    from ahrag_tpu_torch.utils.config import load_config
+    cfg = load_config()
+    cfg.setdefault("answer", {})["reader_ckpt"] = READER_ENSEMBLE
+    return cfg
+
+
+def arbitrated(dev) -> tuple:
+    """``run_benchmark`` (ah_rag, a graph per question) over the v5 TEST
+    items with ``answer.reader_ckpt`` set to the ensemble: (report, ms per
+    item)."""
+    from ahrag_tpu_torch.cli import benchmark as bench
+    ms = []
+    rep = quiet(bench.run_benchmark, "local", system="ah_rag", limit=len(v5_items()),
+                data_path=str(V5_TEST), config=reader_config(), device=dev, item_ms=ms)
+    return rep, ms
+
+
+def recall_rows(dev) -> tuple:
+    """``tools/encoder_recall_eval.py``'s learned cells over the first
+    ``RECALL_ITEMS`` v6 dev items on ``dev``: one learned-encoder graph per
+    item (the tool builds the same graph once per cell), both knob cells over
+    it. Returns (rows, ms per item)."""
+    import tempfile
+    from ahrag_tpu_torch.agent.agent import AHRAG_Agent
+    from ahrag_tpu_torch.agent.environment import GraphEnvironment
+    from ahrag_tpu_torch.agent.inference import InferenceEngine
+    from ahrag_tpu_torch.cli.benchmark import build_question_graph
+    from ahrag_tpu_torch.eval.answer_eval import squad_f1_em
+    from ahrag_tpu_torch.eval.retrieval import recall_at_k
+    from ahrag_tpu_torch.utils.config import load_config
+    steps = int(load_config().get("inference", {}).get("steps", 4))
+    items = [json.loads(ln) for ln in V6_DEV.read_text().splitlines() if ln.strip()]
+    if not os.path.exists("checkpoints"):   # the encoder's default path, as from the root
+        os.symlink(ROOT / "checkpoints", "checkpoints")
+    rows, ms = [], []
+    for it in items[:RECALL_ITEMS]:
+        t0 = time.perf_counter()
+        row = {"id": it.get("id"), "qtype": it.get("qtype"), "cells": {}}
+        with tempfile.TemporaryDirectory() as workdir:
+            hg = quiet(build_question_graph, it["context"], workdir, encoder_name="learned",
+                       device=dev)
+            for label, knobs in RECALL_CELLS:
+                env = GraphEnvironment(hg=hg, log_level="off")
+                out = InferenceEngine(env, AHRAG_Agent(env)).run_inference(
+                    it["question"], steps=steps, knobs=knobs)
+                rec = recall_at_k(out.get("retrieved_nodes") or [], it["gold_titles"], hg, k=10)
+                row["cells"][label] = {"recall10": round(rec, 3),
+                                       "f1": squad_f1_em(out.get("answer", ""),
+                                                         it["answers"])["f1"]}
+        rows.append(row)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return rows, ms
+
+
+def minilm_encode(dev, n: int) -> tuple:
+    """The seeded MiniLM encoder (L6, H384) over the first ``n`` corpus lines
+    on ``dev``: (vectors, ms)."""
+    from ahrag_tpu_torch.models.encoder.minilm import MiniLMEncoder
+    enc = MiniLMEncoder(seed=0, device=dev)
+    lines = corpus_lines()[:n]
+    enc.encode(lines[:8])
+    t0 = time.perf_counter()
+    out = enc.encode(lines)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_reader(dev, steps: int) -> tuple:
+    """``READER_TRAIN``'s first ``steps`` steps at the checkpoint's width
+    (d 256, 8 heads, 3 layers, d_ff 512) from the seeded initial reader:
+    (losses, ms per step)."""
+    import torch
+    from ahrag_tpu_torch.models.reader import train as rt
+    from ahrag_tpu_torch.models.reader.data import build_training_arrays
+    from ahrag_tpu_torch.models.reader.model import SpanReader
+    c = READER_TRAIN
+    fb, (gs, ge) = build_training_arrays(c["n_train"] + c["n_val"], seed=c["seed"])
+    model = SpanReader(d_model=256, n_heads=8, n_layers=3, d_ff=512, seed=c["seed"],
+                       device=dev)
+    opt = rt.make_optimizer(model, c["lr"], c["steps"])
+    data = rt.to_device(fb, slice(0, c["n_train"]), dev)
+    starts = torch.from_numpy(gs[:c["n_train"]]).to(dev)
+    ends = torch.from_numpy(ge[:c["n_train"]]).to(dev)
+    idx = rt.minibatch_index(c["seed"], c["n_train"], c["batch"], c["steps"])
+    key = rt.jax_random.prng_key(c["seed"] * 100003)
+    losses, ms = [], []
+    for take in idx[:steps]:
+        t0 = time.perf_counter()
+        key, loss, _ = rt.train_step(model, opt, data, starts, ends, take, key)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def train_encoder(dev, steps: int) -> tuple:
+    """``ENCODER_TRAIN``'s first ``steps`` InfoNCE steps at the checkpoint's
+    width (d 192, 2 layers, out 384): (losses, ms per step)."""
+    from ahrag_tpu_torch.agent.optim import Adam
+    from ahrag_tpu_torch.models.encoder import contrastive as ct
+    c = ENCODER_TRAIN
+    data = ct.pair_tensors(c["n_pairs"], c["seed"], dev)
+    model = ct.SentEncoder(192, 2, 384, seed=c["seed"], device=dev)
+    opt = Adam(model.parameters(), c["lr"])
+    key = ct.jax_random.prng_key(c["seed"] + 1)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        key, loss, _ = ct.train_step(model, opt, data, key, c["batch"], c["temp"])
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def learned_cpu_legs(part: str) -> dict:
+    """Phase 14's CPU side, in a process of its own (started with the card
+    hidden) while the card runs its side: the same steps on ``device="cpu"``,
+    returned for the comparison. ``part`` "benchmark" is (c); "rest" is the
+    others."""
+    import torch
+    torch.set_num_threads(2 if part == "benchmark" else 4)
+    out = {}
+    with scratch_cwd():          # the answers' session files
+        if part == "benchmark":
+            out["arbitrated"] = arbitrated("cpu")
+            return out
+        out["logits"] = reader_logits("cpu")[0]
+        out["alone"] = reader_alone("cpu")
+        out["recall"] = recall_rows("cpu")
+        out["minilm"] = minilm_encode("cpu", MINILM_CPU_LINES)
+        out["reader_train"] = train_reader("cpu", CPU_TRAIN_STEPS)
+        out["encoder_train"] = train_encoder("cpu", CPU_TRAIN_STEPS)
+    return out
+
+
+def start_cpu_legs():
+    """Start both parts of ``learned_cpu_legs`` in two spawned processes that
+    see no card; the caller joins them through the returned (executor,
+    futures)."""
+    import concurrent.futures
+    import multiprocessing
+    executor = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    # the workers start within these calls, with this environment
+    futures = [executor.submit(learned_cpu_legs, part) for part in ("benchmark", "rest")]
+    if old is None:
+        del os.environ["CUDA_VISIBLE_DEVICES"]
+    else:
+        os.environ["CUDA_VISIBLE_DEVICES"] = old
+    return executor, futures
+
+
+def f1_em(rows) -> dict:
+    n = len(rows)
+    return {"n": n, "f1": round(sum(r["f1"] for r in rows) / n, 2),
+            "em": round(sum(r["em"] >= 100 for r in rows) / n * 100, 2)}
+
+
+def phase_learned(dev) -> dict:
+    """Phase 14: the learned models on the card, each step held against the
+    CPU (run by ``learned_cpu_legs`` in a process of its own, alongside).
+    (d0) the sample corpus through ``ContrastiveEncoder`` and as a
+    learned-encoder graph (D 768, n_pad 5,120), saved; (a) the two shipped
+    readers' logits on 64 v5 reads; (b) the reader ensemble alone over the
+    120 v5 TEST items; (c) ``run_benchmark`` with the ensemble as the answer
+    stage over the same items; (d) the learned graph behind the single-stage
+    ``RetrievalService`` at buckets 1/4/64/128/256 against the same service
+    on the CPU, under 1 and 32 callers, then the learned v6 recall cells;
+    (e) MiniLM; (f) the reader's and the contrastive encoder's trainers at
+    full width; (g) the bin-max kernels at the learned graph's shape.
+    Returns the launch counts of (d)'s service (the main path), the kernel
+    rows at D 768 and the numbers printed."""
+    import tempfile
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch.cli.serve_bench import run_load
+    from ahrag_tpu_torch.eval.answer_eval import squad_f1_em
+    from ahrag_tpu_torch.graph import HierarchicalGraph
+    from ahrag_tpu_torch.models.encoder.contrastive import ContrastiveEncoder
+    from ahrag_tpu_torch.ops.binmax import (dense_binmax, dense_binmax2, dense_binmax2_ref,
+                                            dense_binmax_ref)
+    from ahrag_tpu_torch.serve import RetrievalService
+    out = {}
+    items = v5_items()
+
+    # (d0) the corpus through the learned encoder, and the learned graph
+    lines = corpus_lines()
+    enc = ContrastiveEncoder(ENCODER_CKPT, device=dev)
+    enc_cpu = ContrastiveEncoder(ENCODER_CKPT, device="cpu")
+    enc.encode(lines[:16])
+    t0 = time.perf_counter()
+    vec = enc.encode(lines)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    vec_cpu = enc_cpu.encode(lines)
+    enc_cpu_ms = (time.perf_counter() - t0) * 1e3
+    enc_err = float(np.abs(vec - vec_cpu).max())
+    check(vec.shape == (len(lines), 768) and enc_err <= 1e-5,
+          f"learned encodings card vs CPU: {vec.shape}, {enc_err}")
+    t0 = time.perf_counter()
+    hg = corpus_graph(HierarchicalGraph(encoder_name="learned", device=dev))
+    hg.build_vector_index(layers=(0, 1, 2))
+    index_s = time.perf_counter() - t0
+    graph_dir = tempfile.mkdtemp()
+    hg.save(graph_dir)
+    out["encode"] = {"lines": len(lines), "card_ms": enc_ms, "cpu_ms": enc_cpu_ms,
+                     "max_abs_err": enc_err, "index_s": index_s}
+    log(f"  (d0) {len(lines)} corpus lines through ContrastiveEncoder (D 768): card "
+        f"{enc_ms:.1f} ms, CPU {enc_cpu_ms:.1f} ms, max|card-CPU| {enc_err:.2e}; learned "
+        f"graph built and indexed on the card in {index_s:.1f}s")
+
+    executor, futures = start_cpu_legs()
+
+    # (a) logits of both readers, 64 reads
+    logits, ev, logit_ms = reader_logits(dev)
+    # (b) the reader alone
+    alone, alone_ms = reader_alone(dev)
+    # (c) arbitrated, a graph per question
+    with scratch_cwd():
+        reset_counts()
+        arb, arb_ms = arbitrated(dev)
+        arb_launches = read_counts()
+
+    # (d) the single-stage service over the learned graph
+    loaded = HierarchicalGraph.load(graph_dir, device=dev)
+    svc = RetrievalService(hg=loaded, device=dev, max_batch=256)
+    svc_cpu = RetrievalService(graph_dir=graph_dir, device="cpu", max_batch=256)
+    gt = svc.gt
+    check(not svc._hashed and gt.dim == 768 and gt.n_pad == 5120
+          and gt.emb.dtype == torch.float32, f"learned graph: D {gt.dim}, n_pad {gt.n_pad}")
+    qs = sample_questions(256)
+    reset_counts()   # the main path: the learned service at every bucket
+    card_ids, ties, bucket_ms = {}, 0, {}
+    for b in LEARNED_BUCKETS:
+        t0 = time.perf_counter()
+        card = svc.search_many(qs[:b])
+        bucket_ms[b] = (time.perf_counter() - t0) * 1e3
+        cpu = svc_cpu.search_many(qs[:b])
+        for q, x, y in zip(qs[:b], card, cpu):
+            if result_ids([x]) != result_ids([y]):
+                check(near_tie(loaded, svc_cpu.hg, q),
+                      f"learned service bucket {b}: ids differ on {q!r}, not at a near tie")
+                ties += 1
+        card_ids[b] = result_ids(card)
+    bucket_launches = read_counts()
+    check(bucket_launches["binmax_cuda"] >= 3 and bucket_launches["binmax2_cuda"] >= 2,
+          f"the learned service's buckets launch both bin-max kernels: {bucket_launches}")
+    loads = []
+    reset_counts()
+    for threads, requests in LEARNED_LOADS:
+        rep = run_load(svc, qs, threads=threads, requests_per_thread=requests)
+        lat = rep["latency_ms"]
+        check(rep["errors"] == 0, f"learned service under {threads} callers: errors")
+        loads.append({"callers": threads, "requests": rep["requests"], "qps": rep["qps"],
+                      "p50_ms": lat.get("p50_ms"), "p99_ms": lat.get("p99_ms")})
+    load_launches = read_counts()
+    svc.close()
+    svc_cpu.close()
+    out["service"] = {"n_pad": gt.n_pad, "dim": gt.dim, "bucket_ms": bucket_ms,
+                      "near_ties": ties, "bucket_launches": bucket_launches,
+                      "loads": loads, "load_launches": load_launches}
+    log(f"  (d) learned service (D {gt.dim}, n_pad {gt.n_pad}) at buckets {LEARNED_BUCKETS}: "
+        f"card == CPU ({ties} near ties), first-call ms {json.dumps(bucket_ms)}, launches "
+        f"{bucket_launches}; under load {json.dumps(loads)}, launches {load_launches}")
+    with scratch_cwd():
+        reset_counts()
+        recall, recall_ms = recall_rows(dev)
+        recall_launches = read_counts()
+
+    # (e) MiniLM at the default width from a seeded init
+    mini, mini_ms = minilm_encode(dev, len(lines))
+
+    # (f) both trainers at full width
+    rtrain = train_reader(dev, READER_TRAIN["steps"])
+    etrain = train_encoder(dev, ENCODER_TRAIN["steps"])
+
+    # (g) the bin-max kernels at the learned graph's shape (D 768 float32)
+    mask = gt.indexed & gt.valid
+    n, d, tiles = gt.n_pad, gt.dim, gt.n_pad // 1024
+    qdev = loaded.encode_query_device(qs)
+    q1, q256 = qdev[:1].contiguous(), qdev[:256].contiguous()
+    rows = {"binmax_cuda": kernel_row(
+        "binmax_cuda learned B=1",
+        lambda: dense_binmax(q1, gt.emb, n, mask, 1024),
+        lambda: dense_binmax_ref(q1, gt.emb, n, mask, 1024),
+        lambda: torch.matmul(q1, gt.emb.T).view(1, tiles, 8, 128).amax(2),
+        2.0 * n * d, n * d * 4 + d * 4 + n + tiles * 128 * 4, "float32", reps=50),
+        "binmax2_cuda": kernel_row(
+        "binmax2_cuda learned B=256",
+        lambda: dense_binmax2(q256, gt.emb, n, mask, 1024, gt.mask_trivial),
+        lambda: dense_binmax2_ref(q256, gt.emb, n, mask, 1024, gt.mask_trivial),
+        lambda: torch.matmul(q256, gt.emb.T).view(256, tiles, 8, 128).amax(2).amax(2),
+        2.0 * 256 * n * d,
+        n * d * 4 + 256 * d * 4 + (0 if gt.mask_trivial else n) + tiles * 256 * 128 * 4
+        + 256 * tiles * 4, "float32", reps=50)}
+
+    t0 = time.perf_counter()
+    cpu = {k: v for f in futures for k, v in f.result(timeout=900).items()}
+    executor.shutdown()
+    wait_s = time.perf_counter() - t0
+    shutil.rmtree(graph_dir)
+
+    # the card against the CPU, step by step
+    logit_err = max(float(np.abs(a[k][ev] - b[k][ev]).max())
+                    for a, b in zip(logits, cpu["logits"]) for k in (0, 1))
+    check(logit_err <= 5e-5, f"(a) reader logits card vs CPU: {logit_err}")
+    cpu_alone, cpu_alone_ms = cpu["alone"]
+    conf_err = max(abs(a[1] - b[1]) for a, b in zip(alone, cpu_alone))
+    differ = [it["question"] for it, a, b in zip(items, alone, cpu_alone) if a[0] != b[0]]
+    check(not differ and conf_err <= 1e-4,
+          f"(b) reader answers card vs CPU: {differ}, confidence {conf_err}")
+    scores = [dict(squad_f1_em(a or "", it["answers"])) for (a, _), it in zip(alone, items)]
+    alone_agg = f1_em(scores)
+    cpu_arb, cpu_arb_ms = cpu["arbitrated"]
+    check(arb == cpu_arb, "(c) run_benchmark with the reader: card and CPU reports differ")
+    arb_agg = arb["aggregate"][0]
+    cpu_recall, cpu_recall_ms = cpu["recall"]
+    check(recall == cpu_recall, "(d) learned recall rows: card and CPU differ")
+    recall_agg = {label: {"recall_at_10": round(sum(r["cells"][label]["recall10"]
+                                                    for r in recall) / len(recall), 4),
+                          "mean_f1": round(sum(r["cells"][label]["f1"]
+                                               for r in recall) / len(recall), 2)}
+                  for label, _ in RECALL_CELLS}
+    cpu_mini, cpu_mini_ms = cpu["minilm"]
+    mini_err = float(np.abs(mini[:MINILM_CPU_LINES] - cpu_mini).max())
+    check(mini.shape == (len(lines), 384) and mini_err <= 1e-5,
+          f"(e) MiniLM card vs CPU: {mini.shape}, {mini_err}")
+    train_err = {}
+    for name, card_t in (("reader", rtrain), ("encoder", etrain)):
+        cpu_t = cpu[f"{name}_train"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_t[0], cpu_t[0]))
+        check(all(math.isfinite(x) for x in card_t[0]) and rel <= 1e-4,
+              f"(f) {name} training losses card vs CPU: {rel}")
+        train_err[name] = rel
+    out.update({
+        "reader_logits": {"max_abs_err": logit_err, "b64_forward_ms": logit_ms},
+        "reader_alone": {**alone_agg, "jax_cpu": JAX_CPU["reader_alone"],
+                         "card": pcts(alone_ms), "cpu": pcts(cpu_alone_ms),
+                         "max_conf_err": conf_err},
+        "arbitrated": {"f1": arb_agg["f1"], "em": arb_agg["em"],
+                       "recall_at_10": arb_agg["retrieval_recall_at_10"],
+                       "jax_cpu": JAX_CPU["arbitrated"], "card": pcts(arb_ms),
+                       "cpu": pcts(cpu_arb_ms), "launches": arb_launches},
+        "recall": {**recall_agg, "jax_cpu": {k: JAX_CPU[k] for k, _ in RECALL_CELLS},
+                   "card": pcts(recall_ms), "cpu": pcts(cpu_recall_ms),
+                   "launches": recall_launches},
+        "minilm": {"lines": len(lines), "card_ms": mini_ms, "cpu_lines": MINILM_CPU_LINES,
+                   "cpu_ms": cpu_mini_ms, "max_abs_err": mini_err},
+        "reader_train": {**READER_TRAIN, "losses": rtrain[0], "card": pcts(rtrain[1][1:]),
+                         "cpu": pcts(cpu["reader_train"][1][1:]),
+                         "max_rel_loss_err": train_err["reader"]},
+        "encoder_train": {**ENCODER_TRAIN, "losses": etrain[0], "card": pcts(etrain[1][1:]),
+                          "cpu": pcts(cpu["encoder_train"][1][1:]),
+                          "max_rel_loss_err": train_err["encoder"]},
+        "cpu_wait_s": wait_s, "kernels": rows})
+    log(f"  (a) reader logits, {READER_READS} v5 reads x 2 checkpoints: max|card-CPU| "
+        f"{logit_err:.2e} on evidence positions; one B={READER_READS} forward "
+        f"{logit_ms:.2f} ms on the card")
+    log(f"  (b) reader alone over {len(items)} v5 TEST items: card == CPU (max conf diff "
+        f"{conf_err:.1e}); F1 {alone_agg['f1']}, EM {alone_agg['em']} (the JAX package on "
+        f"the CPU: {json.dumps(JAX_CPU['reader_alone'])}); per item card "
+        f"{json.dumps(pcts(alone_ms))}, CPU {json.dumps(pcts(cpu_alone_ms))}")
+    log(f"  (c) run_benchmark with the reader over {len(items)} v5 TEST items: card == CPU; "
+        f"F1 {arb_agg['f1']:.2f}, EM {arb_agg['em']:.2f}, recall@10 "
+        f"{arb_agg['retrieval_recall_at_10']:.4f} (the JAX package on the CPU: "
+        f"{json.dumps(JAX_CPU['arbitrated'])}); per question card {json.dumps(pcts(arb_ms))}, "
+        f"CPU {json.dumps(pcts(cpu_arb_ms))}; launches {arb_launches}")
+    log(f"  (d) learned recall cells over {RECALL_ITEMS} v6 dev items: card == CPU; "
+        f"{json.dumps(recall_agg)} (the JAX package on the CPU: "
+        f"{json.dumps({k: JAX_CPU[k] for k, _ in RECALL_CELLS})}); per item card "
+        f"{json.dumps(pcts(recall_ms))}, CPU {json.dumps(pcts(cpu_recall_ms))}; launches "
+        f"{recall_launches}")
+    log(f"  (e) MiniLM L6 H384 from a seeded init: {len(lines)} lines in {mini_ms:.1f} ms on "
+        f"the card; the first {MINILM_CPU_LINES} in {cpu_mini_ms:.1f} ms on the CPU, "
+        f"max|card-CPU| {mini_err:.2e}")
+    log(f"  (f) reader training {json.dumps(READER_TRAIN)}: losses {rtrain[0][0]:.4f} -> "
+        f"{rtrain[0][-1]:.4f}, step ms card {json.dumps(pcts(rtrain[1][1:]))}, CPU "
+        f"{json.dumps(pcts(cpu['reader_train'][1][1:]))} over {CPU_TRAIN_STEPS} steps, max "
+        f"rel loss diff {train_err['reader']:.1e}; encoder {json.dumps(ENCODER_TRAIN)}: "
+        f"losses {etrain[0][0]:.4f} -> {etrain[0][-1]:.4f}, step ms card "
+        f"{json.dumps(pcts(etrain[1][1:]))}, CPU "
+        f"{json.dumps(pcts(cpu['encoder_train'][1][1:]))}, max rel loss diff "
+        f"{train_err['encoder']:.1e}")
+    log(f"  (g) kernels at the learned graph's shape (D 768 float32, n_pad {n}): "
+        f"{json.dumps(rows)}; waited {wait_s:.1f}s for the CPU side")
+    out["launches"] = {k: bucket_launches[k] + load_launches[k] + arb_launches[k]
+                       + recall_launches[k] for k in bucket_launches}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2435,7 +2931,8 @@ def main() -> int:
     log(f"phase 11 done in {answered['wall_s']:.1f}s")
 
     t = time.perf_counter()
-    log("phase 12: build, answer and score on the card: the XL pipeline, 150 questions, "
+    log(f"phase 12: build, answer and score on the card: the XL pipeline, {XL_BENCH_QUESTIONS} "
+        "questions, "
         "per-question graphs, a fleet, k-means at 1M")
     with scratch_cwd():          # phase 12's graphs stay here for phase 13
         built, xl_hgs = phase_build(dev, r1["arrs"].emb[:r1["arrs"].n_entities], ents_131k)
@@ -2450,11 +2947,21 @@ def main() -> int:
         log(f"phase 13 done in {trained['wall_s']:.1f}s")
     del xl_hgs
 
+    t = time.perf_counter()
+    log("phase 14: the learned models on the card: the span reader, the learned and MiniLM "
+        "encoders, the single-stage service and both trainers")
+    learned = phase_learned(dev)
+    learned["wall_s"] = time.perf_counter() - t
+    rows["binmax_cuda"]["learned float32 D=768 B=1"] = learned["kernels"]["binmax_cuda"]
+    rows["binmax2_cuda"]["learned float32 D=768 B=256"] = learned["kernels"]["binmax2_cuda"]
+    log(f"phase 14 done in {learned['wall_s']:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
                    + hosted["launches"][k] + hosted["answer_launches"][k]
                    + loaded["launches"][k] + agent["launches"][k] + answered["launches"][k]
-                   + built["launches"][k] + trained["launches"][k] for k in rows}
+                   + built["launches"][k] + trained["launches"][k]
+                   + learned["launches"][k] for k in rows}
     kernels = []
     for name, source, replaces in (
             ("binmax2_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:651"),
@@ -2484,7 +2991,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,7 @@ temporary directory, never at the port's build. A test holds the two
 the port's copy of the source equal to the JAX package's.
 """
 import os
+import pathlib
 import subprocess
 
 import pytest
@@ -280,12 +281,13 @@ def test_generator_llm_path_matches_jax(film, fake_llms, reply, calls):
                        "citations": ["sum:0"]}    # citations whitelisted
 
 
-def test_generator_refuses_a_reader_checkpoint(film):
+def test_generator_answers_with_a_reader_checkpoint_as_jax(film):
     jh, th = film
     ctx = both_contexts(jh, th, film_evidence, 800)
-    with pytest.raises(NotImplementedError, match="span reader is not ported"):
-        tgen.AnswerGenerator().generate("Who directed Ed Wood?", ctx,
-                                        {"reader_ckpt": "checkpoints/reader.msgpack"})
+    ckpt = str(pathlib.Path(__file__).resolve().parents[1] / "checkpoints" / "reader.msgpack")
+    for cfg in ({"reader_ckpt": ckpt}, {"reader_ckpt": ckpt, "reader_only": True}):
+        assert tgen.AnswerGenerator(device="cpu").generate("Who directed Ed Wood?", ctx, cfg) \
+            == jgen.AnswerGenerator().generate("Who directed Ed Wood?", ctx, cfg)
     # reader_only without a checkpoint answers nothing from spans, as in JAX
     cfg = {"reader_only": True}
     assert tgen.AnswerGenerator().generate("Who directed Ed Wood?", ctx, cfg) == \

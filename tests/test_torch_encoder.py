@@ -34,6 +34,8 @@ from ahrag_tpu_torch import serve as tserve
 from ahrag_tpu_torch.models.encoder import create_encoder
 from ahrag_tpu_torch.models.encoder import hashed as thashed
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
 SAMPLES = pathlib.Path(__file__).resolve().parents[1] / "samples"
 QUESTIONS = [json.loads(ln)["question"]
              for ln in (SAMPLES / "synth_v4_shared_train.jsonl").read_text().splitlines()]
@@ -260,11 +262,13 @@ def test_pack_queries_with_assoc_matches_jax_and_searches_alike(corpus_state):
     np.testing.assert_allclose(tout[..., 1:3], jout[..., 1:3], rtol=0, atol=1e-5)
 
 
-def test_create_encoder():
+def test_create_encoder_builds_minilm_and_learned_as_jax():
     enc = create_encoder({"encoder": {"dim": 32, "seed": 3}}, device="cpu")
     assert isinstance(enc, thashed.HashedNGramEncoder)
     assert enc.name == "hashed-ngram-b16384-d32-s3-cg0.3" and enc.device.type == "cpu"
     assert create_encoder({"encoder": {"dim": 32, "seed": 3}}, device="cpu") is enc
+    from ahrag_tpu.models.encoder import create_encoder as jcreate
+    cfg = {"encoder": {"learned_weights": str(ROOT / "checkpoints" / "encoder.msgpack")}}
     for name in ("minilm", "learned"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            create_encoder(name=name, device="cpu")
+        got, ref = create_encoder(cfg, name=name, device="cpu"), jcreate(cfg, name=name)
+        assert (type(got).__name__, got.name, got.dim) == (type(ref).__name__, ref.name, ref.dim)

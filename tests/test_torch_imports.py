@@ -11,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ahrag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "pydantic", "ahrag_tpu", "bench")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "pydantic", "safetensors",
+           "transformers", "ahrag_tpu", "bench")
 # the agent's device path: each must be found and imported by the guard below
 AGENT_MODULES = ("ahrag_tpu_torch.agent.featurizer", "ahrag_tpu_torch.agent.reward",
                  "ahrag_tpu_torch.agent.vec_env", "ahrag_tpu_torch.agent.optim",
@@ -46,6 +47,13 @@ RL_HOST_MODULES = ("ahrag_tpu_torch.agent.gym", "ahrag_tpu_torch.agent.knob_poli
                    "ahrag_tpu_torch.cli.eval_rl_policy", "ahrag_tpu_torch.cli.build_rl_snapshot",
                    "ahrag_tpu_torch.cli.rl_transfer", "ahrag_tpu_torch.eval.synth",
                    "ahrag_tpu_torch.eval.clustering", "ahrag_tpu_torch.cli.cluster_eval")
+# the learned models: the span reader and the contrastive and MiniLM encoders
+LEARNED_MODULES = ("ahrag_tpu_torch.models.flax_layers", "ahrag_tpu_torch.models.reader",
+                   "ahrag_tpu_torch.models.reader.features", "ahrag_tpu_torch.models.reader.model",
+                   "ahrag_tpu_torch.models.reader.data", "ahrag_tpu_torch.models.reader.train",
+                   "ahrag_tpu_torch.answer.reader", "ahrag_tpu_torch.models.encoder.base",
+                   "ahrag_tpu_torch.models.encoder.contrastive",
+                   "ahrag_tpu_torch.models.encoder.minilm")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -87,7 +95,29 @@ from ahrag_tpu_torch.agent.knob_policy import load_knob_policy, train_knob_polic
 from ahrag_tpu_torch.cli import cluster_eval as cli_cluster, collect_trajectories as cli_collect
 from ahrag_tpu_torch.cli import eval_rl_policy as cli_eval_rl, rl_transfer as cli_transfer
 from ahrag_tpu_torch.cli import train_bc as cli_bc, train_ppo as cli_ppo
-calls = [lambda: AHRAGGymEnv(graph_dir="graph_that_is_not_there"),
+from ahrag_tpu_torch.answer.generator import AnswerGenerator
+from ahrag_tpu_torch.answer.reader import ReaderAnswerer, get_reader
+from ahrag_tpu_torch.models.reader.model import SpanReader
+from ahrag_tpu_torch.models.reader import train as reader_train
+from ahrag_tpu_torch.models.encoder import contrastive, create_encoder
+from ahrag_tpu_torch.models.encoder.minilm import MiniLMEncoder
+ckpt = os.path.join({root!r}, "checkpoints", "reader.msgpack")
+enc_ckpt = os.path.join({root!r}, "checkpoints", "encoder.msgpack")
+ctx = {{"context_text": "[DETAIL:p0] Tim Burton directed Ed Wood.", "used_nodes": []}}
+calls = [lambda: SpanReader(), lambda: SpanReader.from_checkpoint(ckpt),
+         lambda: ReaderAnswerer(ckpt), lambda: get_reader(ckpt),
+         lambda: AnswerGenerator().generate("Who directed Ed Wood?", ctx,
+                                            {{"reader_ckpt": ckpt}}),
+         lambda: reader_train.train(n_train=4, n_val=2, steps=1, out="reader_out"),
+         lambda: reader_train.main(["--n-train", "4", "--steps", "1", "--out", "r_out"]),
+         lambda: contrastive.SentEncoder(), lambda: contrastive.ContrastiveEncoder(enc_ckpt),
+         lambda: contrastive.get_contrastive_encoder(enc_ckpt),
+         lambda: contrastive.train(n_pairs=8, steps=1, batch=4, out="enc_out"),
+         lambda: contrastive.main(["--pairs", "8", "--steps", "1", "--out", "e_out"]),
+         lambda: MiniLMEncoder(), lambda: create_encoder(name="learned"),
+         lambda: create_encoder(name="minilm"),
+         lambda: HierarchicalGraph(encoder_name="learned").build_vector_index(),
+lambda: AHRAGGymEnv(graph_dir="graph_that_is_not_there"),
          lambda: ppo_train(lambda: AHRAGGymEnv(graph_dir="graph_that_is_not_there"), ["q"]),
          lambda: train_bc("ev.json", "bc_out"),
          lambda: load_knob_policy("ev.json"), lambda: train_knob_policy("ev.json", "kp_out"),
@@ -144,7 +174,7 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(_GUARD.format(blocked=BLOCKED,
                               agent=AGENT_MODULES + ANSWER_MODULES + BUILD_MODULES
-                              + RL_HOST_MODULES), ROOT)
+                              + RL_HOST_MODULES + LEARNED_MODULES, root=str(ROOT)), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
