@@ -18,8 +18,8 @@ entropy bonus, global-norm clip 1.0 and Adam as optax computes them
   ``update`` per batch of episodes; ``ppo_train_multi`` the same over
   ``graph/multi.rollout_multi`` with a terminal recall reward.
 - ``make_train_step``: one rollout + GAE + full-batch update as a single
-  function on one device (the JAX package's ``make_sharded_train_step``
-  without the mesh).
+  function on one device; ``make_sharded_train_step`` the same over a
+  ``(dp, corpus)`` mesh of ranks (``parallel/``).
 
 Sampling draws from a ``torch.Generator``; JAX's key stream is not
 reproduced, so a sampled episode also depends on the device the generator
@@ -36,12 +36,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ahrag_tpu_torch.agent.featurizer import OBS_DIM
 from ahrag_tpu_torch.agent.optim import Adam
 from ahrag_tpu_torch.agent.vec_env import N_ACTIONS, rollout_batch, sample_actions
 from ahrag_tpu_torch.device import resolve_device
 from ahrag_tpu_torch.models.policy.nets import ActorCritic
+from ahrag_tpu_torch.parallel.mesh import DATA_AXIS
+from ahrag_tpu_torch.parallel.sharded import all_reduce
 
 
 @dataclass
@@ -106,27 +109,30 @@ def _device_tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
 
 
-def _average(x: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+def _average(x: torch.Tensor, weight: Optional[torch.Tensor],
+             denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     if weight is None:
         return x.mean()
-    return (x * weight).sum() / weight.sum().clamp(min=1.0)
+    return (x * weight).sum() / (weight.sum().clamp(min=1.0) if denom is None else denom)
 
 
 def ppo_loss(model: ActorCritic, cfg: PPOConfig, obs: torch.Tensor,
              actions: torch.Tensor, old_logp: torch.Tensor, returns: torch.Tensor,
-             adv: torch.Tensor, weight: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             adv: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             denom: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, [policy, value, entropy]): the clipped surrogate, value MSE and
     entropy bonus, as means over the rows or, given ``weight``, weighted by
-    it (the full-batch step's live mask)."""
+    it (the full-batch step's live mask) and divided by ``denom`` (by
+    default the weights' sum, at least 1; the sharded step passes the
+    global live-step count)."""
     logits, value = model(obs)
     logp_all = torch.log_softmax(logits, dim=-1)
     logp = logp_all.gather(1, actions.long()[:, None])[:, 0]
     ratio = torch.exp(logp - old_logp)
     clipped = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
-    policy_loss = -_average(torch.minimum(ratio * adv, clipped), weight)
-    value_loss = _average((value - returns) ** 2, weight)
-    entropy = _average(-(torch.exp(logp_all) * logp_all).sum(dim=-1), weight)
+    policy_loss = -_average(torch.minimum(ratio * adv, clipped), weight, denom)
+    value_loss = _average((value - returns) ** 2, weight, denom)
+    entropy = _average(-(torch.exp(logp_all) * logp_all).sum(dim=-1), weight, denom)
     loss = policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * entropy
     return loss, torch.stack([policy_loss, value_loss, entropy]).detach()
 
@@ -312,12 +318,23 @@ def ppo_train(env_ctor: Callable[[], Any], questions: List[str],
 
 
 def make_train_step(learner: PPOLearner, w, max_steps: int = 6, top_k: int = 5,
-                    member_top_m: int = 5) -> Callable[..., Dict[str, torch.Tensor]]:
+                    member_top_m: int = 5, dp_group: Optional[dist.ProcessGroup] = None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``train_step(gt, q_embs, generator=None) -> metrics``: batched
     rollouts, device GAE and ONE full-batch clipped-surrogate update of
     ``learner`` (losses weighted by the live-step mask). The metrics stay on
-    the device; nothing waits for it."""
+    the device; nothing waits for it.
+
+    With ``dp_group`` (the data axis of a ``(dp, corpus)`` mesh) every rank
+    rolls out its own episodes, and the live-step count, the gradients and
+    the metrics are summed over the group (``all_reduce``): the loss is
+    divided by the GLOBAL live-step count, so the summed gradient is that of
+    the whole batch's loss and the Adam step is the same on every rank.
+    Without it the sums are over this rank's batch alone."""
     cfg = learner.cfg
+
+    def total(x: torch.Tensor) -> torch.Tensor:
+        return x if dp_group is None else all_reduce(x, dist.ReduceOp.SUM, dp_group)
 
     def train_step(gt, q_embs: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -326,18 +343,40 @@ def make_train_step(learner: PPOLearner, w, max_steps: int = 6, top_k: int = 5,
                                 generator=generator)
         adv, ret = gae_device(traj.rewards, traj.values, traj.dones, traj.mask,
                               cfg.gamma, cfg.gae_lambda)
+        m = traj.mask.reshape(-1).float()
+        live, reward_sum, episodes = total(torch.stack(
+            [m.sum(), (traj.rewards * traj.mask).sum(), traj.mask.any(dim=1).sum().float()]))
         learner.opt.zero_grad()
         loss, aux = ppo_loss(learner.model, cfg, traj.obs.reshape(-1, traj.obs.shape[-1]),
                              traj.actions.reshape(-1), traj.logps.reshape(-1),
-                             ret.reshape(-1), adv.reshape(-1),
-                             weight=traj.mask.reshape(-1).float())
+                             ret.reshape(-1), adv.reshape(-1), weight=m,
+                             denom=live.clamp(min=1.0))
         loss.backward()
+        if dp_group is not None:
+            params = learner.opt.params
+            grads = total(torch.cat([p.grad.reshape(-1) for p in params]))
+            for p, g in zip(params, grads.split([p.numel() for p in params])):
+                p.grad = g.view_as(p)
         learner.opt.step()
-        mean_reward = (traj.rewards * traj.mask).sum() / traj.mask.any(dim=1).sum().clamp(min=1)
-        return {"policy_loss": aux[0], "value_loss": aux[1], "entropy": aux[2],
-                "mean_ep_reward": mean_reward}
+        policy_loss, value_loss, entropy = total(aux)
+        return {"policy_loss": policy_loss, "value_loss": value_loss, "entropy": entropy,
+                "mean_ep_reward": reward_sum / episodes.clamp(min=1)}
 
     return train_step
+
+
+def make_sharded_train_step(learner: PPOLearner, w, mesh, max_steps: int = 6,
+                            top_k: int = 5, member_top_m: int = 5
+                            ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``make_train_step`` over a ``(dp, corpus)`` mesh (the JAX package's
+    ``make_sharded_train_step``): ``train_step(gt, q_embs, generator=None)``
+    on every rank, ``gt`` corpus-sharded (``parallel.sharded.
+    shard_graph_tensors``) and ``q_embs`` the rank's dp slice of the
+    episodes; the ranks of a corpus group roll out together, with generators
+    seeded alike. The parameters' ``.grad`` keep the summed gradient after
+    the step. The metrics are the whole batch's."""
+    return make_train_step(learner, w, max_steps, top_k, member_top_m,
+                           dp_group=mesh.get_group(DATA_AXIS))
 
 
 def _update_live(learner: PPOLearner, traj, adv: torch.Tensor, ret: torch.Tensor,

@@ -130,9 +130,12 @@ def expand_candidates(gt: GraphTensors, seed_idx: torch.Tensor,
     if q_emb is not None and mem_all.shape[-1] > member_top_m:
         if packed:
             ce = gt.child_pack_emb[slot_safe]                              # [B, K, Kc, D]
+        elif gt.shard is not None:
+            # float32, from the rows' owners
+            ce = gt.shard.gather_rows(gt.emb, mem_all.clamp(0, n_pad - 1))
         else:
             ce = gt.emb[mem_all.clamp(0, n_pad - 1)]
-        qd = q_emb.to(ce.dtype).float()
+        qd = q_emb.to(gt.emb.dtype).float()
         msim = torch.einsum("bd,bkcd->bkc", qd, ce.float())
         if flush_eps:
             msim = torch.where(msim.abs() < flush_eps, 0.0, msim)
@@ -222,7 +225,14 @@ def hybrid_search_batch(gt: GraphTensors, q_embs: torch.Tensor, w: SearchWeights
                         certify: bool = True) -> SearchResult:
     """Batched hybrid search over ``[B, D]`` float32 query embeddings on the
     graph's device. The seed stage scores all B queries against the corpus
-    in one pass; stages 2-4 run in candidate space."""
+    in one pass; stages 2-4 run in candidate space. On a corpus-sharded graph
+    (``parallel/sharded.py``) every rank of the corpus group calls it with
+    the same queries: the seeds come from the sharded certified top-k, exact
+    whatever ``certify`` says, and the result is the same on every rank."""
+    if gt.shard is not None:
+        seed_sim, seed_idx = gt.shard.seed_topk(gt, q_embs, top_k, max(12, 2 * top_k + 2),
+                                                SEM_FLUSH_EPS)
+        return _post_seed(gt, seed_sim, seed_idx, w, top_k, member_top_m, q_emb=q_embs)
     seed_sim, seed_idx = refined_masked_topk(
         q_embs, gt.emb, gt.indexed & gt.valid, top_k,
         margin=max(12, 2 * top_k + 2), certify=certify,

@@ -16,12 +16,15 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import TYPE_CHECKING, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from ahrag_tpu_torch.device import resolve_device
+
+if TYPE_CHECKING:
+    from ahrag_tpu_torch.parallel.sharded import CorpusShard
 
 NODE_TYPE_IDS = {"entity": 0, "summary": 1, "hyperedge": 2}
 
@@ -65,10 +68,13 @@ class GraphTensors:
     # exactly the zero-embedding pad rows, and the seed kernel may skip its
     # masking (ops/binmax.py ``dense_binmax2(trivial=True)``)
     mask_trivial: bool = False
+    # set on a corpus-sharded graph (``parallel/sharded.py
+    # shard_graph_tensors``): ``emb`` then holds only this rank's rows
+    shard: "CorpusShard | None" = None
 
     @property
     def n_pad(self) -> int:
-        return int(self.emb.shape[0])
+        return self.shard.n_pad if self.shard is not None else int(self.emb.shape[0])
 
     @property
     def dim(self) -> int:

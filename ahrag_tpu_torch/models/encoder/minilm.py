@@ -52,7 +52,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, cfg: MiniLMConfig, gen: torch.Generator) -> None:
         super().__init__()
         h = cfg.hidden
-        self.heads = cfg.heads
+        self.head_dim = h // cfg.heads
         self.q, self.k, self.v = Dense(h, h, gen), Dense(h, h, gen), Dense(h, h, gen)
         self.attn_out = Dense(h, h, gen)
         self.ln_attn = LayerNorm(h, cfg.layer_norm_eps)
@@ -61,17 +61,21 @@ class TransformerBlock(nn.Module):
         self.ln_ff = LayerNorm(h, cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        B, T, h = x.shape
-        hd = h // self.heads
+        # the head count and the context width follow q's output, so a block
+        # whose q/k/v hold a subset of the heads (tensor parallelism,
+        # ``parallel/sharded.py``) runs through this same forward
+        B, T, _ = x.shape
+        hd = self.head_dim
 
         def split(t):
-            return t.reshape(B, T, self.heads, hd).transpose(1, 2)
+            return t.reshape(B, T, -1, hd).transpose(1, 2)
 
-        scores = torch.matmul(split(self.q(x)), split(self.k(x)).transpose(-1, -2))
+        q = self.q(x)
+        scores = torch.matmul(split(q), split(self.k(x)).transpose(-1, -2))
         scores = scores / math.sqrt(hd)
         bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(scores.dtype)
         attn = torch.softmax(scores + bias, dim=-1)
-        ctx = torch.matmul(attn, split(self.v(x))).transpose(1, 2).reshape(B, T, h)
+        ctx = torch.matmul(attn, split(self.v(x))).transpose(1, 2).reshape(B, T, q.shape[-1])
         x = self.ln_attn(x + self.attn_out(ctx))
         ff = self.ff_out(torch.nn.functional.gelu(self.ff_in(x)))
         return self.ln_ff(x + ff)

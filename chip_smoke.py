@@ -30,7 +30,11 @@ print their wall time:
      equal) and on unit vectors, with a control that rounds the plain scores
      to bf16 and must fail the limit, the all-identical-rows tie case, and
      exact inputs at D = 200, at D = 768 in bf16 and at tile_n = 2048 (the
-     last two on 16-query chunks);
+     last two on 16-query chunks); ``dense_binmax`` at tile_n 2048 (the
+     sharded path's tile) over both types and every query chunk: exact
+     inputs equal at D 200/384/768, unit vectors within ``TOL`` with a
+     bf16-rounding control above it, ``binmax_eps`` at (384, 2048) per type,
+     and its row at the per-shard shape (262,144 x 384, B 64);
   3. the 1,048,576-entity bench rung (1,067,008 nodes, bf16, B = 512) through
      ``hybrid_search_batch``: rank parity against the CPU reference on 8
      queries, the certificate audit on 64, the certified share, the kernels'
@@ -84,7 +88,7 @@ print their wall time:
  11. question answering: the XL dev world (``samples/synth_v4_sharedxl_*``,
      1,835 titled paragraphs as named entities under topic summaries of 64 and
      communities of 8: 1,868 nodes) built and indexed by the port on the card,
-     saved and loaded onto the CPU; its first 96 dev questions (of 150) through
+     saved and loaded onto the CPU; its first 64 dev questions (of 150) through
      ``RetrievalService.answer`` on the card and on the CPU (answer, rationale,
      citations, retrieved nodes, evidence ids and context text equal; a
      difference passes only as a counted near tie of two scores within 1e-5),
@@ -100,7 +104,7 @@ print their wall time:
      ``structure.json`` and ``meta.json`` byte for byte equal, the index's
      ids, IDF and associations equal, its embeddings and LSA basis within
      1e-5; n_pad 6,144, so every one-query search goes through
-     ``dense_binmax``); ``run_benchmark(system="both")`` over the first 96 dev
+     ``dense_binmax``); ``run_benchmark(system="both")`` over the first 64 dev
      questions (of 150), over the card's graph on the card and the CPU's on the CPU
      (rows and retrieved nodes equal, near ties counted; aggregate F1, EM and
      recall@10; per-question ms; at least one ``dense_binmax`` launch per
@@ -146,13 +150,33 @@ print their wall time:
      the same initial weights and draws (losses within 1e-4 relatively); and
      both bin-max kernels at the learned graph's shape with their bounds and
      library calls;
+ 15. multi-device: four ranks (processes) share the card over gloo, nccl
+     refusing two ranks on one device, so every collective runs on host
+     copies: (a) ``sharded_dense_topk``, ``sharded_refined_topk`` and
+     ``sharded_topk_2level`` ``{2, 2}`` over 1,048,576 x 384 in bf16 and
+     float32 (4 shards of 262,144 rows, each local stage through
+     ``dense_binmax`` at tile_n 2048), B 64, k 5 and 10, n_valid short of N,
+     against the flat exact ranking on the card (ids equal but counted near
+     ties, values within ``TOL``), certified share 1.0, and an input of 4,096
+     tied rows whose certificate fails, where every rank takes the fallback
+     and the lowest ids win; (b) hybrid search at B 64 over a 1,073,152-node
+     bench rung sharded 4 ways against the flat search on the card (ids
+     equal, scores within 1e-6); (c) one sharded PPO step on ``{dp 2,
+     corpus 2}`` over it (64 episodes, max_steps 3): rollouts equal to the
+     unsharded ones, observations within 1e-6, the applied gradient and the
+     parameters within 1e-6 of one Adam step on the concatenated batch; (d) MiniLM split over the 4 ranks against the
+     whole model (2e-4 / 2e-5); (e) ``cli/topk_bench`` at its defaults with
+     all 7 variants (oracle mismatches 0, cert_rate 1.0); (f) ``entry()``'s
+     forward and ``dryrun_multichip(4)``;
 
 and prints the corpus bytes each redesigned kernel requests by its design
 (a count, not a DRAM reading), the kernels' JSON line (times at the
 main-path shapes, bounds, launch counts, errors, achieved TFLOP/s, share of
 the bound, ``binmax_eps`` per type; the float32 shapes of ``binmax2`` and
 ``tile_topk`` under ``"float32"``, ``binmax``'s 1M bf16 B = 64 and 131k f32
-B = 64 shapes under ``"bfloat16 B=64"`` and ``"float32 B=64"``), the card's
+B = 64 shapes under ``"bfloat16 B=64"`` and ``"float32 B=64"``, its
+per-shard shapes under ``"shard bfloat16 B=64 tile_n=2048"`` and ``"shard
+float32 B=64 tile_n=2048"``; launches include phase 15's ranks), the card's
 name and power limit, and last the
 contract line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -186,6 +210,7 @@ TOPK_TOL = 1e-5
 # dense_binmax's batches in phase 2: every query chunk (8 to 128 in bf16, 8 to
 # 64 in float32), a partial last chunk and several chunks
 BINMAX_BATCHES = (1, 4, 5, 16, 20, 64, 100, 128, 200)
+SHARD_ROWS = 262144            # phase 15: 1,048,576 rows over 4 ranks
 SAMPLES = Path(__file__).resolve().parent / "samples"
 
 _T0 = time.perf_counter()
@@ -282,10 +307,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    from ahrag_tpu_torch.ops.binmax import dense_binmax, dense_binmax2
-    from ahrag_tpu_torch.ops.tile_topk import tile_topk
-    return {"binmax2_cuda": dense_binmax2.launches, "binmax_cuda": dense_binmax.launches,
-            "tile_topk_cuda": tile_topk.launches}
+    from ahrag_tpu_torch.parallel.programs import launches
+    return launches()
 
 
 def compare_topk(what: str, q, emb, vals, ids, ref_vals, ref_ids, tol: float,
@@ -440,6 +463,83 @@ def phase_binmax_exact(dev) -> None:
                 cases += 1
     torch.cuda.synchronize()
     log(f"  binmax: exact inputs equal in {cases} cases, query chunks {sorted(chunks)}")
+
+
+def phase_binmax_tile2048(dev) -> tuple:
+    """``dense_binmax`` at ``tile_n`` 2048, the tile of each shard's local
+    stage in phase 15, against its plain version: both types, B 1 to 200
+    (every query chunk), n_valid short of N and tile 1 fully masked; exact
+    inputs (halves in [-1, 1]) at D 200/384/768 must give equal bins, unit
+    vectors at D 384 bins within ``TOL``, with a control (the plain bins
+    rounded to bf16) that must read above it. Then ``binmax_eps`` at
+    (d 384, tile_n 2048) per type, and the kernel's row at the per-shard
+    shape of phase 15 (262,144 x 384, B 64) in both types: time, plain
+    version, library call (``torch.matmul`` + ``amax``) and bound. Returns
+    (max error on unit vectors, {type: row})."""
+    import torch
+    from ahrag_tpu_torch.ops.binmax import dense_binmax, dense_binmax_ref
+    from ahrag_tpu_torch.ops.topk import binmax_eps
+    gen = torch.Generator().manual_seed(4)
+    n, tile_n = 4 * 2048, 2048
+    err, control, cases = 0.0, 0.0, 0
+    for dtype, dim, family in itertools.chain(
+            itertools.product((torch.bfloat16, torch.float32), (200, 384, 768), ("exact",)),
+            itertools.product((torch.bfloat16, torch.float32), (384,), ("unit",))):
+        name = str(dtype).split(".")[1]
+        if family == "exact":
+            emb = (torch.randint(-2, 3, (n, dim), generator=gen) / 2.0).to(dev, dtype)
+        else:
+            x = torch.randn((n, dim), generator=gen)
+            emb = (x / x.norm(dim=1, keepdim=True)).to(dev, dtype)
+        mask = torch.rand(n, generator=gen) > 0.2
+        mask[tile_n:2 * tile_n] = False
+        mask = mask.to(dev)
+        for b in BINMAX_BATCHES:
+            if family == "exact":
+                q = (torch.randint(-2, 3, (b, dim), generator=gen) / 2.0).to(dev, dtype)
+            else:
+                x = torch.randn((b, dim), generator=gen)
+                q = (x / x.norm(dim=1, keepdim=True)).to(dev, dtype)
+            out = dense_binmax(q, emb, n - 300, mask, tile_n)
+            ref = dense_binmax_ref(q, emb, n - 300, mask, tile_n)
+            e = (out - ref).abs().max().item()
+            what = f"binmax tile_n=2048 {name} {family} D={dim} B={b}"
+            check(out.shape == ref.shape == (b, n // 16), f"{what}: shape {out.shape}")
+            check(e <= (0.0 if family == "exact" else TOL[name]), f"{what}: err {e}")
+            check(bool((out[:, 128:256] == -1e30).all()), f"{what}: the fully masked tile")
+            if family == "unit":
+                err = max(err, e)
+                live = ref > -1e29
+                control = max(control, (ref.to(torch.bfloat16).float() - ref)[live]
+                              .abs().max().item())
+            cases += 1
+    torch.cuda.synchronize()
+    eps = {"bfloat16": binmax_eps(dev.type, 384, 2048, True),
+           "float32": binmax_eps(dev.type, 384, 2048, False)}
+    log(f"  binmax tile_n=2048: exact inputs equal and unit vectors {err:.3e} against "
+        f"{json.dumps(TOL)} in {cases} cases; control (plain bins rounded to bf16) "
+        f"{control:.3e}; binmax_eps at d=384, tile_n=2048 {json.dumps(eps)}")
+    check(control > max(TOL.values()), f"the tile-2048 bf16-rounding control ({control}) "
+          f"passes the limits {TOL}")
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name in ("bfloat16", "float32"):
+        dtype, ns, b = getattr(torch, name), SHARD_ROWS, 64
+        emb = torch.randn((ns, 384), generator=g, device=dev)
+        emb = (emb / emb.norm(dim=1, keepdim=True)).to(dtype)
+        q = torch.randn((b, 384), generator=g, device=dev)
+        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        m = torch.ones(ns, dtype=torch.bool, device=dev)
+        t, es = ns // 2048, emb.element_size()
+        rows[name] = kernel_row(
+            f"binmax_cuda shard {name}", lambda: dense_binmax(q, emb, ns, m, 2048),
+            lambda: dense_binmax_ref(q, emb, ns, m, 2048),
+            lambda: torch.matmul(q, emb.T).view(b, t, 16, 128).amax(2),
+            2.0 * b * ns * 384, ns * 384 * es + b * 384 * es + ns + b * t * 128 * 4, name, 20)
+        log(f"  binmax at the shard shape ({ns} x 384 {name}, B=64, tile_n=2048): "
+            f"{json.dumps(rows[name])}")
+        del emb, q, m
+    return err, rows
 
 
 def phase_tile_topk_vs_plain(dev) -> dict:
@@ -1479,7 +1579,7 @@ def phase_agent(dev, r1, gt_cpu, smi: str) -> dict:
 
 
 HOST_GRAPH_QUESTIONS = 32      # answers over phase 8's graph (the kernel path)
-XL_ANSWER_QUESTIONS = 96       # phase 11: XL dev questions answered (of 150; cut for phase 14)
+XL_ANSWER_QUESTIONS = 64       # phase 11: XL dev questions answered (of 150; cut for phases 14-15)
 
 
 def timed_answers(svc, queries) -> tuple:
@@ -1626,7 +1726,7 @@ def phase_answers(dev, host_hg, host_hg_cpu) -> dict:
         "host_graph": {"card": pcts(hcard_ms), "cpu": pcts(hcpu_ms),
                        "near_ties": host_ties, "launches": host_counts}}
 
-XL_BENCH_QUESTIONS = 96        # phase 12: shared-KB dev questions (of 150; cut for phase 14)
+XL_BENCH_QUESTIONS = 64        # phase 12: shared-KB dev questions (of 150; cut for phases 14-15)
 PER_QUESTION_ITEMS = 32        # phase 12: per-question graphs (synth_v4_dev)
 FLEET_ITEMS = 16               # phase 12: per-question graphs stacked
 GATE_V4 = (90.0, 0.85)         # ``make gate-v4``'s F1 and faithfulness bars
@@ -2747,6 +2847,256 @@ def phase_learned(dev) -> dict:
     return out
 
 
+# phase 15: four ranks sharing the one card over gloo
+MULTI_RANKS = 4
+MULTI_N = 4 * SHARD_ROWS       # (a) 1,048,576 corpus rows in 4 shards
+MULTI_B = 64
+MULTI_KS = (5, 10)
+MULTI_DUP = 4096               # (a) copies of row 0 in the input whose certificate fails
+# (b) the bench rung whose n_pad (1,073,152 = 131 x 8,192) splits into 4 shards of
+# whole 2,048-row tiles: 1,054,400 entities, 16,475 topics, 2,059 communities
+MULTI_ENTITIES = 1054400
+MULTI_PPO_SEED = 7
+MULTI_TEXTS = 16               # (d) sample questions through MiniLM
+LADDER_VARIANTS = "flat,approx,binmax,binmax_hi,binned,binned_hi,refined"
+LADDER_ARGS: list = []         # (e) topk_bench at its defaults
+
+
+def composed_update(learner, trajs) -> tuple:
+    """One Adam step of ``learner`` on ``ppo_loss`` of ``trajs`` concatenated,
+    weighted by their live mask: (parameters, [policy, value, entropy], the
+    gradient the step applied)."""
+    import torch
+    from ahrag_tpu_torch.agent import ppo, vec_env
+    cat = vec_env.Trajectory(*(torch.cat(x) for x in zip(*trajs)))
+    adv, ret = ppo.gae_device(cat.rewards, cat.values, cat.dones, cat.mask)
+    learner.opt.zero_grad()
+    loss, aux = ppo.ppo_loss(learner.model, learner.cfg, cat.obs.reshape(-1, cat.obs.shape[-1]),
+                             cat.actions.reshape(-1), cat.logps.reshape(-1), ret.reshape(-1),
+                             adv.reshape(-1), weight=cat.mask.reshape(-1).float())
+    loss.backward()
+    grads = {k: p.grad.cpu() for k, p in learner.model.named_parameters()}
+    learner.opt.step()
+    return {k: v.cpu() for k, v in learner.model.state_dict().items()}, aux.cpu(), grads
+
+
+def phase_multi(dev, smi: str) -> dict:
+    """Phase 15: the multi-device path on four ranks that share the one card
+    over gloo, then the top-k ladder and the entry points. (a) the sharded
+    top-k functions over a 1,048,576 x 384 corpus in bf16 and float32 (4
+    shards of 262,144 rows: every local stage runs ``dense_binmax`` at tile_n
+    2048), B 64, k 5 and 10, n_valid short of N, each rank's ids equal to the
+    flat exact ranking on the card and values within ``TOL``; an input whose
+    certificate fails, where every rank takes the fallback; (b) hybrid search
+    over a bench rung sharded 4 ways, equal to the flat search on the card;
+    (c) one sharded PPO step on ``{dp 2, corpus 2}`` over it, 64 episodes,
+    max_steps 3, its rollouts, applied gradient and update equal to the
+    unsharded ones; (d)
+    MiniLM split over the 4 ranks against the whole model; (e)
+    ``cli/topk_bench`` at its defaults with all 7 variants; (f) ``entry()``'s
+    forward and ``dryrun_multichip(4)``. Returns the summary with the
+    launches of every process."""
+    import contextlib
+    import functools
+    import io
+    import torch
+    from ahrag_tpu_torch import entry
+    from ahrag_tpu_torch.agent.featurizer import OBS_DIM
+    from ahrag_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from ahrag_tpu_torch.agent.vec_env import rollout_batch
+    from ahrag_tpu_torch.bench_data import bench_queries, bench_tensors, build_bench_arrays
+    from ahrag_tpu_torch.cli import topk_bench
+    from ahrag_tpu_torch.graph.search import SearchWeights, hybrid_search_batch
+    from ahrag_tpu_torch.models.encoder.minilm import MiniLMEncoder
+    from ahrag_tpu_torch.ops.topk import dense_topk_ref
+    from ahrag_tpu_torch.parallel import programs
+    from ahrag_tpu_torch.parallel.distributed import spawn
+
+    log(f"  {MULTI_RANKS} ranks share the one card over gloo (nccl refuses two ranks on one "
+        "device): a rehearsal of the program, not a measurement of NVLink; each "
+        "collective runs on host copies of its operands")
+    out = {"launches_ranks": []}
+    reset_counts()
+
+    t = time.perf_counter()
+    n_valid = MULTI_N - 1000
+    datas = {"bfloat16": functools.partial(programs.ladder, MULTI_N, 384, MULTI_B, 11,
+                                           "bfloat16", 0),
+             "float32": functools.partial(programs.ladder, MULTI_N, 384, MULTI_B, 11,
+                                          "float32", 0),
+             "fallback bfloat16": functools.partial(programs.ladder, MULTI_N, 384, MULTI_B,
+                                                    12, "bfloat16", MULTI_DUP)}
+    ks = {"bfloat16": MULTI_KS, "float32": MULTI_KS, "fallback bfloat16": (10,)}
+    res = spawn(programs.several, MULTI_RANKS,
+                [(programs.topk_program, (datas[c], ks[c], n_valid, dev.type)) for c in datas])
+    spawn_s = time.perf_counter() - t
+    certified, calls, per_call, swaps, max_err = 0, 0, {}, {}, {}
+    for ci, (case, data) in enumerate(datas.items()):
+        q, e = data(dev)
+        tol = TOL["float32" if case == "float32" else "bfloat16"]
+        for k in ks[case]:
+            rv, ri = dense_topk_ref(q, e, n_valid, k)
+            for rank, r in enumerate(res):
+                got = r[ci]["by_k"][k]
+                check(r[ci]["rows"] == SHARD_ROWS, f"(a) rank {rank} rows {r[ci]['rows']}")
+                for name in ("dense", "refined", "two_level"):
+                    v, i = (x.to(dev) for x in got[name])
+                    what = f"(a) {case} k={k} rank {rank} {name}"
+                    # the tied input must give the lowest ids exactly; elsewhere
+                    # two rows whose float32 scores lie within the limit may
+                    # trade places (another summation order), counted
+                    err, sw = compare_topk(what, q, e, v, i, rv, ri, tol)
+                    max_err[case] = max(max_err.get(case, 0.0), err)
+                    if case == "fallback bfloat16":
+                        check(torch.equal(i, ri), f"{what}: tied rows not in index order")
+                    swaps[what] = sw
+                    per_call.setdefault(f"{case} k={k} {name}", []).append(got[f"{name}_s"] * 1e3)
+                check(got["certified"] is (case != "fallback bfloat16"),
+                      f"(a) {case} k={k} rank {rank}: certified={got['certified']}")
+                if case != "fallback bfloat16":
+                    certified += int(got["certified"])
+                    calls += 1
+        del q, e
+    for rank, r in enumerate(res):          # each rank's counts since it started
+        check(r[-1]["launches"]["binmax_cuda"] > 0, f"(a) rank {rank}: no dense_binmax launch")
+        out["launches_ranks"].append(r[-1]["launches"])
+    out["topk"] = {"certified_share": certified / calls, "refined_calls": calls,
+                   "fallback_ranks": len(res),
+                   "near_tie_swaps": {k: v for k, v in swaps.items() if v},
+                   "max_abs_err": max_err,
+                   "binmax_launches_per_rank": [r[-1]["launches"]["binmax_cuda"] for r in res],
+                   "ms_per_call_mean_over_ranks": {k: sum(v) / len(v) for k, v in per_call.items()},
+                   "spawn_s": spawn_s, "s": time.perf_counter() - t}
+    log(f"  (a) sharded top-k at {MULTI_N} x 384, 4 shards of {SHARD_ROWS}: ids equal to the "
+        f"flat ranking on every rank; fallback taken by every rank on the tied input; "
+        f"{json.dumps(out['topk'])}")
+
+    t = time.perf_counter()
+    arrs = build_bench_arrays(MULTI_ENTITIES, MULTI_ENTITIES // 64)
+    gt = bench_tensors(arrs, "bfloat16", device=dev)
+    check(gt.n_pad % (MULTI_RANKS * 2048) == 0, f"(b) n_pad {gt.n_pad}")
+    q = torch.from_numpy(bench_queries(arrs, MULTI_B)).to(dev)
+    w = SearchWeights.create(device=dev)
+    flat = programs.to_cpu(hybrid_search_batch(gt, q, w, top_k=5, member_top_m=5))
+    torch.cuda.synchronize(dev)
+    t_f = time.perf_counter()
+    hybrid_search_batch(gt, q, w, top_k=5, member_top_m=5)
+    torch.cuda.synchronize(dev)
+    flat_ms = (time.perf_counter() - t_f) * 1e3
+    learner = PPOLearner(OBS_DIM, 6, PPOConfig(epochs=1), seed=MULTI_PPO_SEED, device=dev)
+    half = MULTI_B // 2
+    trajs = [rollout_batch(gt, q[d * half:(d + 1) * half], learner.model, w, max_steps=3,
+                           generator=torch.Generator(device=dev).manual_seed(MULTI_PPO_SEED + d))[0]
+             for d in range(2)]
+    torch.cuda.synchronize(dev)
+    t_f = time.perf_counter()
+    rollout_batch(gt, q[:half], learner.model, w, max_steps=3,
+                  generator=torch.Generator(device=dev).manual_seed(MULTI_PPO_SEED))
+    torch.cuda.synchronize(dev)
+    flat_rollout_ms = (time.perf_counter() - t_f) * 1e3
+    want_params, want_aux, want_grads = composed_update(learner, trajs)
+    trajs = programs.to_cpu(trajs)
+    enc = MiniLMEncoder(seed=0, device=dev)
+    ids, mask = enc._tokenize(sample_questions(MULTI_TEXTS))
+    with torch.no_grad():
+        want_minilm = enc.model(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+    want_minilm = want_minilm.cpu()
+    n_pad = gt.n_pad
+    del gt, learner, enc, arrs
+    torch.cuda.empty_cache()
+    flat_s = time.perf_counter() - t
+    t = time.perf_counter()
+    graph = functools.partial(programs.bench_graph, MULTI_ENTITIES, MULTI_ENTITIES // 64,
+                              "bfloat16")
+    res = spawn(programs.several, MULTI_RANKS, [
+        (programs.graph_program, (graph, q.cpu(), dev.type, 5, 5, q.cpu(), MULTI_PPO_SEED, 3)),
+        (programs.minilm_program, ({}, None, 0, ids, mask, dev.type))])
+    spawn_s = time.perf_counter() - t
+    search_err = 0.0
+    for rank, r in enumerate(res):
+        g, tp = r
+        check(g["emb_rows"] == n_pad // MULTI_RANKS, f"(b) rank {rank} rows {g['emb_rows']}")
+        check(torch.equal(g["search"].reranked_valid, flat.reranked_valid),
+              f"(b) rank {rank}: valid flags differ from the flat search")
+        for ids, score in (("seed_idx", "seed_sim"), ("reranked_idx", "reranked_score")):
+            check(torch.equal(getattr(g["search"], ids), getattr(flat, ids)),
+                  f"(b) rank {rank}: {ids} differ from the flat search:\n"
+                  f"{getattr(g['search'], ids)}\nvs\n{getattr(flat, ids)}")
+            err = (getattr(g["search"], score) - getattr(flat, score)).abs().max().item()
+            check(err <= 1e-6, f"(b) rank {rank}: {score} differs by {err} > 1e-6")
+            search_err = max(search_err, err)
+        dp = rank // 2
+        got, want = g["traj"], trajs[dp]
+        for f in ("actions", "rewards", "dones", "mask"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"(c) rank {rank}: rollout {f} differs from the unsharded rollout")
+        obs_err = (got.obs - want.obs).abs().max().item()
+        check(obs_err <= 1e-6, f"(c) rank {rank}: observations differ by {obs_err}")
+        m = g["metrics"]
+        aux = torch.stack([m["policy_loss"], m["value_loss"], m["entropy"]])
+        aux_err = (aux - want_aux).abs().max().item()
+        par_err = max((p - want_params[k]).abs().max().item() for k, p in g["params"].items())
+        check(g["grads"].keys() == want_grads.keys(), f"(c) rank {rank}: gradient names")
+        grad_err = max((x - want_grads[k]).abs().max().item() for k, x in g["grads"].items())
+        check(torch.allclose(aux, want_aux, rtol=1e-6, atol=1e-6) and par_err <= 1e-6
+              and grad_err <= 1e-6,
+              f"(c) rank {rank}: loss terms differ by {aux_err}, parameters by {par_err}, "
+              f"the applied gradient by {grad_err}")
+        out.setdefault("ppo_grad_max_abs_err", []).append(grad_err)
+        check(all(math.isfinite(float(v)) for v in m.values()), f"(c) metrics {m}")
+        tp_err = (tp - want_minilm).abs().max().item()
+        check(torch.allclose(tp, want_minilm, rtol=2e-4, atol=2e-5),
+              f"(d) rank {rank}: tensor-parallel MiniLM differs by {tp_err}")
+        check(g["launches"]["binmax_cuda"] > 0, f"(b) rank {rank}: no dense_binmax launch")
+        out["launches_ranks"].append(g["launches"])
+    g = res[0][0]
+    out["graph"] = {
+        "n_pad": n_pad, "rows_per_rank": g["emb_rows"],
+        "search_ms_B64_per_rank": [r[0]["search_s"] * 1e3 for r in res],
+        "seeds_ms_per_rank": [r[0]["seeds_s"] * 1e3 for r in res],
+        "member_rows_ms_per_rank": [r[0]["member_rows_s"] * 1e3 for r in res],
+        "flat_search_ms_B64": flat_ms, "flat_rollout_ms_B32": flat_rollout_ms,
+        "rollout_ms_B32_per_rank": [r[0]["rollout_s"] * 1e3 for r in res],
+        "ppo_step_ms_per_rank": [r[0]["step_s"] * 1e3 for r in res],
+        "second_ppo_step_ms_per_rank": [r[0]["warm_step_s"] * 1e3 for r in res],
+        "ppo_metrics": {k: float(v) for k, v in g["metrics"].items()},
+        "minilm_max_abs_err": max((r[1] - want_minilm).abs().max().item() for r in res),
+        "launches_per_rank": [r[0]["launches"] for r in res],
+        "search_max_abs_err": search_err, "flat_side_s": flat_s, "spawn_s": spawn_s}
+    log(f"  (b-d) sharded hybrid search, PPO step and MiniLM TP equal to the unsharded runs "
+        f"on every rank: {json.dumps(out['graph'])}")
+
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        topk_bench.main(["--variants", LADDER_VARIANTS, "--device", dev.type, *LADDER_ARGS])
+    ladder = json.loads(buf.getvalue())
+    log(f"  (e) topk_bench ({smi}): {json.dumps(ladder)}")
+    for v in LADDER_VARIANTS.split(","):
+        check(v in ladder, f"(e) variant {v} missing")
+    for v in ("flat", "approx", "binned", "binned_hi", "refined"):
+        check(ladder[v]["oracle_mismatch"] == 0, f"(e) {v}: {ladder[v]}")
+    for v in ("binned", "binned_hi"):
+        check(ladder[v]["cert_rate"] == 1.0, f"(e) {v}: {ladder[v]}")
+    out["ladder"] = ladder
+    out["ladder_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    fn, args = entry.entry(dev.type)
+    vals, ids = fn(*args)
+    check(tuple(ids.shape) == (2, 10) and bool(torch.isfinite(vals).all()),
+          f"(f) entry() forward: {vals}")
+    dry = entry.dryrun_multichip(MULTI_RANKS, device=dev.type)
+    out["launches_ranks"].extend(dry["launches"])
+    out["dryrun"] = {k: dry[k] for k in ("mesh", "mesh2", "nodes", "metrics")}
+    out["entry_s"] = time.perf_counter() - t
+    log(f"  (f) entry() forward {tuple(vals.shape)}; dryrun_multichip(4) on the card "
+        f"{json.dumps(out['dryrun'])} in {out['entry_s']:.1f}s")
+    parent = read_counts()
+    out["launches"] = {k: parent[k] + sum(r[k] for r in out["launches_ranks"]) for k in parent}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2791,6 +3141,8 @@ def main() -> int:
     errs = phase_kernels_vs_plain(dev)
     phase_binmax_exact(dev)
     errs.update(phase_tile_topk_vs_plain(dev))
+    err2048, shard_rows = phase_binmax_tile2048(dev)
+    errs["binmax_cuda"] = max(errs["binmax_cuda"], err2048)
     log(f"phase 2: kernels vs plain done in {time.perf_counter() - t:.1f}s: {errs}")
     t = time.perf_counter()
     log("phase 3: 1M-entity rung, bf16, B=512")
@@ -2956,12 +3308,23 @@ def main() -> int:
     rows["binmax2_cuda"]["learned float32 D=768 B=256"] = learned["kernels"]["binmax2_cuda"]
     log(f"phase 14 done in {learned['wall_s']:.1f}s")
 
+    t = time.perf_counter()
+    log("phase 15: multi-device on the card (4 ranks over gloo), the top-k ladder and the "
+        "entry points")
+    multi = phase_multi(dev, smi)
+    multi["wall_s"] = time.perf_counter() - t
+    check(multi["launches"]["binmax_cuda"] > 0, f"dense_binmax on the sharded path: "
+          f"{multi['launches']}")
+    rows["binmax_cuda"]["shard bfloat16 B=64 tile_n=2048"] = shard_rows["bfloat16"]
+    rows["binmax_cuda"]["shard float32 B=64 tile_n=2048"] = shard_rows["float32"]
+    log(f"phase 15 done in {multi['wall_s']:.1f}s")
+
     path_counts = {k: r1["rung"]["launches"][k] + serve_counts[k]
                    + served["bucket64_launches"][k] + sum(f["launches"][k] for f in flat)
                    + hosted["launches"][k] + hosted["answer_launches"][k]
                    + loaded["launches"][k] + agent["launches"][k] + answered["launches"][k]
                    + built["launches"][k] + trained["launches"][k]
-                   + learned["launches"][k] for k in rows}
+                   + learned["launches"][k] + multi["launches"][k] for k in rows}
     kernels = []
     for name, source, replaces in (
             ("binmax2_cuda", "ahrag_tpu_torch/ops/csrc/binmax.cu", "ahrag_tpu/ops/topk.py:651"),
@@ -2991,7 +3354,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned, 'multi': multi})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,6 +54,11 @@ LEARNED_MODULES = ("ahrag_tpu_torch.models.flax_layers", "ahrag_tpu_torch.models
                    "ahrag_tpu_torch.answer.reader", "ahrag_tpu_torch.models.encoder.base",
                    "ahrag_tpu_torch.models.encoder.contrastive",
                    "ahrag_tpu_torch.models.encoder.minilm")
+# multi-device (parallel/), the entry points (entry.py) and the top-k ladder
+PARALLEL_MODULES = ("ahrag_tpu_torch.parallel", "ahrag_tpu_torch.parallel.mesh",
+                    "ahrag_tpu_torch.parallel.distributed", "ahrag_tpu_torch.parallel.sharded",
+                    "ahrag_tpu_torch.parallel.programs", "ahrag_tpu_torch.entry",
+                    "ahrag_tpu_torch.cli.topk_bench")
 
 _GUARD = """
 import importlib, pkgutil, sys
@@ -101,6 +106,8 @@ from ahrag_tpu_torch.models.reader.model import SpanReader
 from ahrag_tpu_torch.models.reader import train as reader_train
 from ahrag_tpu_torch.models.encoder import contrastive, create_encoder
 from ahrag_tpu_torch.models.encoder.minilm import MiniLMEncoder
+from ahrag_tpu_torch import entry
+from ahrag_tpu_torch.cli import topk_bench
 ckpt = os.path.join({root!r}, "checkpoints", "reader.msgpack")
 enc_ckpt = os.path.join({root!r}, "checkpoints", "encoder.msgpack")
 ctx = {{"context_text": "[DETAIL:p0] Tim Burton directed Ed Wood.", "used_nodes": []}}
@@ -114,6 +121,9 @@ calls = [lambda: SpanReader(), lambda: SpanReader.from_checkpoint(ckpt),
          lambda: contrastive.get_contrastive_encoder(enc_ckpt),
          lambda: contrastive.train(n_pairs=8, steps=1, batch=4, out="enc_out"),
          lambda: contrastive.main(["--pairs", "8", "--steps", "1", "--out", "e_out"]),
+         lambda: entry.entry(), lambda: entry.dryrun_multichip(4),
+         lambda: entry.main([]), lambda: topk_bench.run_ladder(4096, 2, 8, 1),
+         lambda: topk_bench.main(["--n", "4096"]),
          lambda: MiniLMEncoder(), lambda: create_encoder(name="learned"),
          lambda: create_encoder(name="minilm"),
          lambda: HierarchicalGraph(encoder_name="learned").build_vector_index(),
@@ -174,7 +184,8 @@ def _run(code: str, cwd) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_and_refuses_cpu_fallback():
     proc = _run(_GUARD.format(blocked=BLOCKED,
                               agent=AGENT_MODULES + ANSWER_MODULES + BUILD_MODULES
-                              + RL_HOST_MODULES + LEARNED_MODULES, root=str(ROOT)), ROOT)
+                              + RL_HOST_MODULES + LEARNED_MODULES + PARALLEL_MODULES,
+                              root=str(ROOT)), ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 
@@ -261,7 +272,9 @@ NO_TRY = ("ahrag_tpu_torch/ops/", "ahrag_tpu_torch/native/", "ahrag_tpu_torch/mo
           "ahrag_tpu_torch/cli/train_ppo.py", "ahrag_tpu_torch/cli/train_bc.py",
           "ahrag_tpu_torch/cli/train_rl.py", "ahrag_tpu_torch/cli/collect_trajectories.py",
           "ahrag_tpu_torch/cli/eval_rl_policy.py", "ahrag_tpu_torch/cli/build_rl_snapshot.py",
-          "ahrag_tpu_torch/cli/rl_transfer.py", "ahrag_tpu_torch/cli/cluster_eval.py")
+          "ahrag_tpu_torch/cli/rl_transfer.py", "ahrag_tpu_torch/cli/cluster_eval.py",
+          "ahrag_tpu_torch/parallel/", "ahrag_tpu_torch/entry.py",
+          "ahrag_tpu_torch/cli/topk_bench.py")
 PARSE_CALLS = {"float", "int", "json.loads", "json.load"}
 HAND_OFF_SCOPES = {"MicroBatcher", "serve_http"}
 # the LLM client's network retry: the one scope where catching any error is
