@@ -38,9 +38,10 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of the extern "C" launchers in csrc/*.cu
 _SIGNATURES = {
-    "ahrag_binmax2": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
-    "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P],
-    "ahrag_tile_topk": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _P, _P, _P],
+    "ahrag_binmax2": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _I, _P, _P, _P],
+    "ahrag_binmax": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _P, _P],
+    "ahrag_tile_topk": [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _P, _P, _P],
+    "ahrag_cluster_slots": [_I, ctypes.POINTER(_I)],
 }
 
 
@@ -102,8 +103,12 @@ def launch_args(q: torch.Tensor, emb: torch.Tensor,
         raise ValueError("the kernels take contiguous q, emb and mask")
     if q.shape[1] % 8 or q.data_ptr() % 16 or emb.data_ptr() % 16:
         raise ValueError("the kernels need D % 8 == 0 and 16-byte aligned q and emb")
+    # the current stream's raw handle, as torch.cuda.current_stream(device)
+    # .cuda_stream gives it but without building a Stream object, which cost
+    # 5-9 us a call on the H100 machine's host: as much as the kernel's own
+    # time on a graph of a few tiles
     return (load_library(), int(emb.dtype == torch.bfloat16),
-            torch.cuda.current_stream(emb.device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(emb.device.index))
 
 
 _COUNT_LOCK = threading.Lock()
@@ -128,8 +133,11 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, plan=None) -> None:
     """Add one to ``wrapper.launches`` under a lock, so that the count stays
-    right when several threads launch (the serving pipeline's workers)."""
+    right when several threads launch (the serving pipeline's workers), and
+    keep the ``plan`` the launcher was given and launched (a bin-max
+    wrapper's chunk, split and grid) as ``wrapper.last_plan``."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        wrapper.last_plan = plan

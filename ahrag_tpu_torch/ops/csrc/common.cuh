@@ -1,7 +1,9 @@
 // Device helpers shared by the port's kernels (binmax.cu, tile_topk.cu).
 //
 // Every kernel runs on the TMA ring (TMA loads into 128-byte-swizzled shared
-// memory through mbarrier stages, one producer warp, a persistent grid), and
+// memory through mbarrier stages, one producer warp, a persistent grid or, for
+// the bin-max kernels on graphs of few tiles, clusters that split each tile's
+// slices among their blocks), and
 // every product loop is exact for its storage type up to summation order. The
 // ring has two consumers: bf16_slice, bf16 x bf16 products on the tensor cores
 // (wgmma) with float32 accumulation, whose products are exact and whose sums
@@ -211,14 +213,14 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64
 }
 
 // The ring's shape. A block has 8 consumer warps (threads 0-255: two wgmma
-// warpgroups in bf16) and one producer warp (256-287), and works through the
-// items it = blockIdx.x, blockIdx.x + gridDim.x, ... of the chunks x tiles
-// (query chunk it % chunks of QC queries, corpus tile it / chunks), so that the
-// chunks of one tile are taken up together. A stage is one 128-row corpus slice
-// by one box of D (16 KB).
+// warpgroups in bf16) and one producer warp (256-287), and works through its
+// Share of the (query chunk it % chunks of QC queries, corpus tile it / chunks)
+// items, so that the chunks of one tile are taken up together. A stage is one
+// 128-row corpus slice by one box of D (16 KB).
 //   - bf16 (resident queries): the block's query chunk, all of D, stays in
-//     shared memory, one panel of QC rows per box of D; gridDim.x is a
-//     multiple of the chunks, so a block's chunk never changes.
+//     shared memory, one panel of QC rows per box of D; a block's chunk never
+//     changes, since gridDim.x is a multiple of the chunks (split 1) or the
+//     block has one item (split > 1).
 //   - float32 (streamed queries): each stage also holds the chunk's box of D
 //     (QC rows of 128 bytes) after the corpus box, so QC is not bounded by a
 //     resident chunk and any block may take any item.
@@ -229,6 +231,50 @@ constexpr int kCorpusBytes = kSliceRows * 128;
 constexpr int kStages = 4;
 constexpr int kConsumers = 256;
 constexpr int kRingThreads = kConsumers + 32;
+
+// A block's share of the items and of each item's slices (128-row groups of
+// its tile). Persistent (kSplit false, split 1): items blockIdx.x, blockIdx.x
+// + gridDim.x, ... and every slice of each. kSplit: the grid holds
+// chunks x tiles clusters of `split` blocks, one item each; the block of rank
+// r = blockIdx.x % split in its cluster takes item blockIdx.x / split and its
+// slices r * g / split .. (r + 1) * g / split - 1 (g = tile_n / 128).
+struct Share {
+  long long first, step, end;   // items first, first + step, ... < end
+  int s0, s1;                   // slices s0 .. s1 - 1 of each
+  int tile_n;
+};
+
+template <bool kSplit = false>
+__device__ __forceinline__ Share block_share(int chunks, int num_tiles, int tile_n,
+                                             int split = 1) {
+  const int g = tile_n / kSliceRows;
+  if constexpr (!kSplit) {
+    return {blockIdx.x, gridDim.x, (long long)chunks * num_tiles, 0, g, tile_n};
+  } else {
+    const int r = (int)(blockIdx.x % split);
+    const long long it = blockIdx.x / split;
+    return {it, 1, it + 1, r * g / split, (r + 1) * g / split, tile_n};
+  }
+}
+
+// Barrier over every thread of the block's cluster; its arrive releases and its
+// wait acquires, so shared-memory writes before it are seen by reads, local or
+// remote, after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+// 16 bytes at `p` (an address in this block's shared memory) read from the same
+// offset in the shared memory of the cluster's block `rank` (distributed
+// shared memory).
+__device__ __forceinline__ float4 ld_cluster_f4(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
 
 template <typename T, int QC>
 struct RingSmem {
@@ -299,25 +345,26 @@ struct Ring {
     if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
 
-  // The producer (one thread): the resident query panels once, then for every
-  // item of this block every slice and box of D.
+  // The producer (one thread): the resident query panels once (the block's
+  // chunk never changes), then for every item of its share each of its slices
+  // and every box of D.
   __device__ void produce(const CUtensorMap* emb_map, const CUtensorMap* q_map, int D,
-                          int tile_n, int chunks, int num_tiles) {
+                          int chunks, const Share& sh) {
     constexpr int kE = Box<T>::kElems;
     const int kb_n = Box<T>::count(D);
     if constexpr (!Smem::kStreamQ) {
       mbar_expect_tx(qbar, (uint32_t)(kb_n * QC * 128));
       for (int kb = 0; kb < kb_n; ++kb)
         tma_load_2d(q_s + (size_t)kb * QC * 128, q_map, qbar, kb * kE,
-                    (int)(blockIdx.x % chunks) * QC);
+                    (int)(sh.first % chunks) * QC);
     }
-    for (long long it = blockIdx.x; it < (long long)chunks * num_tiles; it += gridDim.x) {
+    for (long long it = sh.first; it < sh.end; it += sh.step) {
       const int c0 = (int)(it % chunks) * QC, t = (int)(it / chunks);
-      for (int i = 0; i < tile_n / kSliceRows; ++i) {
+      for (int i = sh.s0; i < sh.s1; ++i) {
         for (int kb = 0; kb < kb_n; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], Smem::kStageBytes);
-          tma_load_2d(current(), emb_map, &full[stage], kb * kE, t * tile_n + i * kSliceRows);
+          tma_load_2d(current(), emb_map, &full[stage], kb * kE, t * sh.tile_n + i * kSliceRows);
           if constexpr (Smem::kStreamQ)
             tma_load_2d(current() + kCorpusBytes, q_map, &full[stage], kb * kE, c0);
           advance();
@@ -356,20 +403,21 @@ __device__ __forceinline__ void bf16_slice(float (&acc)[QC / 2], Ring<__nv_bfloa
   }
 }
 
-// bf16 bin maxima of one tile t: the tile's slices through bf16_slice, each
-// folded into mx (bf16_slice's register layout) after masking by row, since
-// slice i's row r is bin r's i-th row. Rows at or past n_valid or with mask 0
-// count as -1e30 unless kTrivial. The thread's bins are bin0 and bin0 + 8.
+// bf16 bin maxima of one tile t over its slices s0 .. s1 - 1: each slice
+// through bf16_slice, folded into mx (bf16_slice's register layout) after
+// masking by row, since slice i's row r is bin r's i-th row. Rows at or past
+// n_valid or with mask 0 count as -1e30 unless kTrivial. The thread's bins are
+// bin0 and bin0 + 8.
 template <bool kTrivial, int QC>
 __device__ __forceinline__ void bf16_tile_bins(float (&mx)[QC / 2],
                                                Ring<__nv_bfloat16, QC>& ring, int D,
-                                               long long base, int tile_n, int bin0,
+                                               long long base, int s0, int s1, int bin0,
                                                const uint8_t* __restrict__ mask,
                                                long long n_valid) {
   float acc[QC / 2];
 #pragma unroll
   for (int x = 0; x < QC / 2; ++x) mx[x] = -INFINITY;
-  for (int i = 0; i < tile_n / kSliceRows; ++i) {
+  for (int i = s0; i < s1; ++i) {
     bf16_slice(acc, ring, D);
     const long long row = base + kSliceRows * i + bin0;
     const bool ok0 = kTrivial || (row < n_valid && mask[row] != 0);
@@ -510,31 +558,50 @@ bool rows_map(CUtensorMap* map, const void* ptr, long long rows, int D, int box_
 }
 
 // Makes the corpus and query maps of a ring kernel (corpus boxes of 128 rows,
-// query boxes of QC rows) and launches it on a persistent grid: one block per
-// SM, and with resident queries a multiple of the B / QC chunks (at least one
-// block per chunk, at most one per item). The kernel's first two arguments are
-// the maps. Returns cudaErrorInvalidValue when a map cannot be made.
+// query boxes of QC rows) and launches it on `grid` blocks; the kernel's first
+// two arguments are the maps and its last the number of query chunks. The
+// grid is the wrapper's launch plan (ring_grid in ops/binmax.py), checked here:
+//   - split == 1, the persistent grid: one block per SM, at most one per item,
+//     and with resident queries a multiple of the B / QC chunks (at least one
+//     block per chunk), so that each block walks the items of one chunk (Share);
+//   - split > 1, for items too few to fill the SMs: chunks x tiles clusters of
+//     `split` blocks (cudaLaunchKernelEx with a cluster dimension; 8 is the
+//     largest size every Hopper part schedules), each cluster one item, each
+//     of its blocks 1 / split of the tile's slices. The kernel merges the
+//     blocks' partial results through distributed shared memory.
+// Returns cudaErrorInvalidValue when the grid is not one of these or a map
+// cannot be made, and the launch's own error when it is refused (a cluster
+// that cannot be scheduled).
 template <typename T, int QC, typename Kernel, typename... Args>
 cudaError_t launch_ring(Kernel kern, const void* q, const void* emb, int B, long long N, int D,
-                        long long num_tiles, size_t smem, cudaStream_t stream, Args... args) {
+                        long long num_tiles, int split, long long grid, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  const long long chunks = (B + QC - 1) / QC, items = chunks * num_tiles;
+  const bool persistent = grid >= 1 && grid <= items &&
+                          (RingSmem<T, QC>::kStreamQ || grid % chunks == 0);
+  if (split > 1 ? grid != items * split : !persistent) return cudaErrorInvalidValue;
   CUtensorMap emb_map, q_map;
   if (!rows_map<T>(&emb_map, emb, N, D, kSliceRows) || !rows_map<T>(&q_map, q, B, D, QC))
     return cudaErrorInvalidValue;
   cudaError_t err = opt_in(kern, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const long long chunks = (B + QC - 1) / QC, items = chunks * num_tiles;
-  long long grid;
-  if (RingSmem<T, QC>::kStreamQ) {
-    grid = sms < items ? sms : items;
-  } else {
-    long long walks = sms / chunks;
-    if (walks < 1) walks = 1;
-    if (walks > num_tiles) walks = num_tiles;
-    grid = chunks * walks;
+  if (split > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)grid);
+    cfg.blockDim = dim3(kRingThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, kern, emb_map, q_map, args..., (int)chunks))
+        != cudaSuccess)
+      return err;
+    return cudaGetLastError();
   }
   kern<<<(unsigned)grid, kRingThreads, smem, stream>>>(emb_map, q_map, args..., (int)chunks);
   return cudaGetLastError();

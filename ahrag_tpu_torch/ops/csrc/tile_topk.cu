@@ -131,7 +131,8 @@ tile_topk_kernel(const __grid_constant__ CUtensorMap emb_map,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == ahrag::kConsumers / 32) {           // producer warp
-    if (lane == 0) ring.produce(&emb_map, &q_map, D, tile_n, chunks, num_tiles);
+    if (lane == 0)
+      ring.produce(&emb_map, &q_map, D, chunks, ahrag::block_share(chunks, num_tiles, tile_n));
     return;
   }
   if constexpr (sizeof(T) == 2) ahrag::mbar_wait(ring.qbar, 0);   // resident queries
@@ -171,20 +172,25 @@ tile_topk_kernel(const __grid_constant__ CUtensorMap emb_map,
   }
 }
 
-// Chunks of 32 queries where their shared memory fits, else of 16.
+// The wrapper's chunk qc (tile_topk_chunk): 32 queries where their shared
+// memory fits, else 16; any other returns cudaErrorInvalidValue.
 template <typename T>
-int launch(const void* q, const void* emb, const void* mask, long long n_valid, int B,
-           long long N, int D, int tile_n, int kk, void* vals, void* idx, cudaStream_t stream) {
+int launch(int qc, const void* q, const void* emb, const void* mask, long long n_valid, int B,
+           long long N, int D, int tile_n, int kk, long long grid, void* vals, void* idx,
+           cudaStream_t stream) {
   const long long num_tiles = N / tile_n;
-  if (smem_bytes<T, 32>(D, tile_n) <= kSmemLimit)
+  const bool fits = smem_bytes<T, 32>(D, tile_n) <= kSmemLimit;
+  if (qc == 32 && fits)
     return (int)ahrag::launch_ring<T, 32>(
-        tile_topk_kernel<T, 32>, q, emb, B, N, D, num_tiles, smem_bytes<T, 32>(D, tile_n),
-        stream, (const uint8_t*)mask, n_valid, B, D, tile_n, (int)num_tiles, kk, (float*)vals,
-        (int*)idx);
-  return (int)ahrag::launch_ring<T, 16>(
-      tile_topk_kernel<T, 16>, q, emb, B, N, D, num_tiles, smem_bytes<T, 16>(D, tile_n),
-      stream, (const uint8_t*)mask, n_valid, B, D, tile_n, (int)num_tiles, kk, (float*)vals,
-      (int*)idx);
+        tile_topk_kernel<T, 32>, q, emb, B, N, D, num_tiles, 1, grid,
+        smem_bytes<T, 32>(D, tile_n), stream, (const uint8_t*)mask, n_valid, B, D, tile_n,
+        (int)num_tiles, kk, (float*)vals, (int*)idx);
+  if (qc == 16 && !fits)
+    return (int)ahrag::launch_ring<T, 16>(
+        tile_topk_kernel<T, 16>, q, emb, B, N, D, num_tiles, 1, grid,
+        smem_bytes<T, 16>(D, tile_n), stream, (const uint8_t*)mask, n_valid, B, D, tile_n,
+        (int)num_tiles, kk, (float*)vals, (int*)idx);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -194,12 +200,16 @@ int launch(const void* q, const void* emb, const void* mask, long long n_valid, 
 // N % tile_n == 0, tile_n % 128 == 0, the block's shared memory at 16 queries
 // within what a block may opt in to, 1 <= kk <= tile_n; mask [N] bool or null
 // for every row. vals [N / tile_n, B, kk] float32, idx the same shape int32.
+// qc and grid are the wrapper's (tile_topk_chunk, ring_grid in ops/binmax.py).
 // Returns a cudaError_t code (cudaErrorInvalidValue when a TMA descriptor cannot be
-// made).
+// made, or the chunk or grid is not one launch_ring takes).
 extern "C" int ahrag_tile_topk(const void* q, const void* emb, const void* mask,
                                long long n_valid, int B, long long N, int D, int tile_n,
-                               int kk, int is_bf16, void* vals, void* idx, void* stream) {
+                               int kk, int qc, long long grid, int is_bf16, void* vals,
+                               void* idx, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<__nv_bfloat16>(q, emb, mask, n_valid, B, N, D, tile_n, kk, vals, idx, s)
-                 : launch<float>(q, emb, mask, n_valid, B, N, D, tile_n, kk, vals, idx, s);
+  return is_bf16 ? launch<__nv_bfloat16>(qc, q, emb, mask, n_valid, B, N, D, tile_n, kk, grid,
+                                         vals, idx, s)
+                 : launch<float>(qc, q, emb, mask, n_valid, B, N, D, tile_n, kk, grid, vals,
+                                 idx, s);
 }

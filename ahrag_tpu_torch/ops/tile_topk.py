@@ -28,7 +28,7 @@ import torch
 
 from ahrag_tpu_torch.device import f32_matmul, stable_topk
 from ahrag_tpu_torch.ops._build import SMEM_LIMIT, count_launch, launch_args
-from ahrag_tpu_torch.ops.binmax import NEG_INF, ring_smem_bytes
+from ahrag_tpu_torch.ops.binmax import NEG_INF, device_sms, ring_grid, ring_smem_bytes
 
 
 def _smem(d: int, tile_n: int, is_bf16: bool, qc: int) -> int:
@@ -124,10 +124,12 @@ def tile_topk(q: torch.Tensor, emb: torch.Tensor, n_valid: int, k: int,
     idx = torch.empty((N // tile_n, B, kk), dtype=torch.int32, device=emb.device)
     if B == 0:
         return vals, idx
+    qc = tile_topk_chunk(D, tile_n, bool(is_bf16))
+    grid = ring_grid(-(-B // qc), N // tile_n, 1, not is_bf16, device_sms(emb.device.index))
     rc = lib.ahrag_tile_topk(
         q.data_ptr(), emb.data_ptr(), None if mask is None else mask.data_ptr(),
-        int(n_valid), B, N, D, tile_n, kk, is_bf16, vals.data_ptr(), idx.data_ptr(),
-        stream)
+        int(n_valid), B, N, D, tile_n, kk, qc, grid, is_bf16, vals.data_ptr(),
+        idx.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"ahrag_tile_topk launch failed: cudaError {rc}")
     count_launch(tile_topk)

@@ -13,7 +13,7 @@ print their wall time:
      the main-path shapes and, from ``cuobjdump -sass``, each kernel's HGMMA
      and FFMA counts, and fails unless every bf16 instantiation of
      ``ahrag_binmax2``, ``ahrag_binmax`` and ``ahrag_tile_topk`` runs HGMMA
-     (wgmma);
+     (wgmma), the bin-max ones in both kinds (persistent and split);
   2. holds each kernel against its plain PyTorch version on the card: the
      bin-max kernels in bf16 and float32, masked and trivial, D = 384, 6
      tiles, n_valid short of N, one fully masked tile, ``dense_binmax2`` at
@@ -34,7 +34,13 @@ print their wall time:
      sharded path's tile) over both types and every query chunk: exact
      inputs equal at D 200/384/768, unit vectors within ``TOL`` with a
      bf16-rounding control above it, ``binmax_eps`` at (384, 2048) per type,
-     and its row at the per-shard shape (262,144 x 384, B 64);
+     and its row at the per-shard shape (262,144 x 384, B 64); both bin-max
+     kernels at every split their launch plans choose (1, 2, 4 and 8 blocks
+     an item, each met for both kernels, both types and tile_n 1024, 2048
+     and 4096; 1-16 tiles, B 1-1024, D 200/384/768, a fully masked tile):
+     bins and supermax equal on exact inputs, unit vectors within ``TOL``
+     with a bf16-rounding control above it; ``binmax_eps`` at (384, 1024),
+     (768, 1024) and (384, 2048) per type equal to ``PARENT_EPS``;
   3. the 1,048,576-entity bench rung (1,067,008 nodes, bf16, B = 512) through
      ``hybrid_search_batch``: rank parity against the CPU reference on 8
      queries, the certificate audit on 64, the certified share, the kernels'
@@ -104,7 +110,9 @@ print their wall time:
      ``structure.json`` and ``meta.json`` byte for byte equal, the index's
      ids, IDF and associations equal, its embeddings and LSA basis within
      1e-5; n_pad 6,144, so every one-query search goes through
-     ``dense_binmax``); ``run_benchmark(system="both")`` over the first 64 dev
+     ``dense_binmax``); ``dense_binmax``'s row at that shape (B 1 over the
+     card's graph: time, plain version, library call, bound, launch plan);
+     ``run_benchmark(system="both")`` over the first 64 dev
      questions (of 150), over the card's graph on the card and the CPU's on the CPU
      (rows and retrieved nodes equal, near ties counted; aggregate F1, EM and
      recall@10; per-question ms; at least one ``dense_binmax`` launch per
@@ -176,7 +184,10 @@ the bound, ``binmax_eps`` per type; the float32 shapes of ``binmax2`` and
 ``tile_topk`` under ``"float32"``, ``binmax``'s 1M bf16 B = 64 and 131k f32
 B = 64 shapes under ``"bfloat16 B=64"`` and ``"float32 B=64"``, its
 per-shard shapes under ``"shard bfloat16 B=64 tile_n=2048"`` and ``"shard
-float32 B=64 tile_n=2048"``; launches include phase 15's ranks), the card's
+float32 B=64 tile_n=2048"``, the learned graph's under ``"learned float32
+D=768 B=1"`` and ``"learned float32 D=768 B=256"``, the answer path's under
+``"answer float32 D=384 B=1"``; each bin-max row with its launch plan;
+launches include phase 15's ranks), the card's
 name and power limit, and last the
 contract line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero. Without a CUDA device it exits non-zero at once.
@@ -210,6 +221,18 @@ TOPK_TOL = 1e-5
 # dense_binmax's batches in phase 2: every query chunk (8 to 128 in bf16, 8 to
 # 64 in float32), a partial last chunk and several chunks
 BINMAX_BATCHES = (1, 4, 5, 16, 20, 64, 100, 128, 200)
+# phase 2's sweep of the bin-max launch plans: tiles per corpus and batches per
+# kernel, chosen so that every split (1, 2, 4, 8) occurs for both kernels, both
+# types and tile_n 1024, 2048 and 4096
+SPLIT_TILES = (1, 2, 5, 9, 16)
+SPLIT_BATCHES = {"binmax": (1, 5, 64, 200, 512), "binmax2": (128, 256, 512, 1024)}
+# binmax_eps as the kernels gave it before the split existed (the kernels of
+# one block per item, read by tools/torch_binmax_timing.py on an H100 80GB
+# HBM3): a split only regroups the maxima, so the bins, and these bands, stay
+# bit for bit
+PARENT_EPS = {(384, 1024): {"bfloat16": 1.1095536708831786e-06, "float32": 1.683233534940831e-06},
+              (768, 1024): {"bfloat16": 1.3599339243024587e-06, "float32": 1.5896785605067463e-06},
+              (384, 2048): {"bfloat16": 1.1095536708831786e-06, "float32": 1.683233534940831e-06}}
 SHARD_ROWS = 262144            # phase 15: 1,048,576 rows over 4 ranks
 SAMPLES = Path(__file__).resolve().parent / "samples"
 
@@ -258,8 +281,9 @@ def kernel_report(info: dict) -> dict:
     ``nvcc``) demangles. Fails unless every bf16 instantiation of
     ``ahrag_binmax2``, ``ahrag_binmax`` and ``ahrag_tile_topk``
     (``binmax2_bf16_kernel<...>``, ``binmax_qmajor_kernel<__nv_bfloat16, ...>`` and
-    ``tile_topk_kernel<__nv_bfloat16, ...>``, one per query chunk and, for
-    binmax2, per mask kind: 4 + 5 + 2) runs HGMMA."""
+    ``tile_topk_kernel<__nv_bfloat16, ...>``, one per query chunk, for the
+    bin-max kernels per kind (persistent or split) and for binmax2 per mask
+    kind: 8 + 10 + 2) runs HGMMA."""
     import os
     import re
     from ahrag_tpu_torch.ops import _build
@@ -291,7 +315,7 @@ def kernel_report(info: dict) -> dict:
     bf16 = {k: v for k, v in report.items()
             if k.startswith(("binmax2_bf16_kernel<", "binmax_qmajor_kernel<__nv_bfloat16",
                              "tile_topk_kernel<__nv_bfloat16"))}
-    check(len(bf16) == 11, f"eleven bf16 instantiations of binmax2, binmax and tile_topk: "
+    check(len(bf16) == 20, f"twenty bf16 instantiations of binmax2, binmax and tile_topk: "
           f"{sorted(bf16)}")
     for name, r in bf16.items():
         check(r.get("hgmma", 0) > 0, f"{name} runs no HGMMA: {r}")
@@ -535,11 +559,115 @@ def phase_binmax_tile2048(dev) -> tuple:
             f"binmax_cuda shard {name}", lambda: dense_binmax(q, emb, ns, m, 2048),
             lambda: dense_binmax_ref(q, emb, ns, m, 2048),
             lambda: torch.matmul(q, emb.T).view(b, t, 16, 128).amax(2),
-            2.0 * b * ns * 384, ns * 384 * es + b * 384 * es + ns + b * t * 128 * 4, name, 20)
+            2.0 * b * ns * 384, ns * 384 * es + b * 384 * es + ns + b * t * 128 * 4, name, 20,
+            plan_of=dense_binmax)
         log(f"  binmax at the shard shape ({ns} x 384 {name}, B=64, tile_n=2048): "
             f"{json.dumps(rows[name])}")
         del emb, q, m
     return err, rows
+
+
+def phase_split_sweep(dev) -> dict:
+    """Both bin-max kernels against their plain versions at every split their
+    launch plans choose (1, 2, 4, 8 blocks an item): both types, tile_n 1024,
+    2048 and 4096, 1-16 tiles (``SPLIT_TILES``), B 1-512 for ``dense_binmax``
+    and 128-1024 for ``dense_binmax2`` (``SPLIT_BATCHES``), D 200/384/768 in
+    turn, masked and (``dense_binmax2``) trivial, n_valid short of N and tile 1
+    fully masked. Exact inputs (halves in [-1, 1]) must give equal bins and
+    supermax; unit vectors at D 384 and tile_n 1024 bins within ``TOL``, with
+    a control (the plain bins rounded to bf16) that must read above it. Fails
+    unless each (kernel, type, tile_n) met every split. Returns the largest
+    error on unit vectors per kernel."""
+    import torch
+    from ahrag_tpu_torch.ops.binmax import (SPLITS, dense_binmax, dense_binmax2,
+                                            dense_binmax2_ref, dense_binmax_ref, device_slots)
+    slots = device_slots(torch.cuda.current_device())
+    log(f"  clusters the card runs at once, one block per SM, for splits {SPLITS}: {slots} "
+        f"(the launch plans' waves; SMs / split would be "
+        f"{tuple(slots[0] // s for s in SPLITS)})")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dims = (200, 384, 768)
+    seen, cases, control = {}, 0, 0.0
+    err = {"binmax_cuda": 0.0, "binmax2_cuda": 0.0}
+
+    def draw(rows, dim, family, dtype):
+        if family == "exact":
+            x = torch.randint(-2, 3, (rows, dim), generator=gen, device=dev) / 2.0
+        else:
+            x = torch.randn((rows, dim), generator=gen, device=dev)
+            x = x / x.norm(dim=1, keepdim=True)
+        return x.to(dtype)
+
+    for dtype, family in itertools.product((torch.bfloat16, torch.float32), ("exact", "unit")):
+        name = str(dtype).split(".")[1]
+        tiles_n = (1024, 2048, 4096) if family == "exact" else (1024,)
+        tiles_set = SPLIT_TILES if family == "exact" else (1, 5, 16)
+        embs = {dim: draw(max(tiles_set) * max(tiles_n), dim, family, dtype)
+                for dim in (dims if family == "exact" else (384,))}
+        for kernel, tile_n in itertools.product(("binmax", "binmax2"), tiles_n):
+            for (i, tiles), (j, b) in itertools.product(enumerate(tiles_set),
+                                                        enumerate(SPLIT_BATCHES[kernel])):
+                dim = dims[(i + 2 * j) % 3] if family == "exact" else 384
+                n = tiles * tile_n
+                emb, q = embs[dim][:n], draw(b, dim, family, dtype)
+                mask = torch.rand(n, generator=gen, device=dev) > 0.2
+                mask[tile_n:2 * tile_n] = False
+                for trivial in ((False,) if kernel == "binmax" else (False, True)):
+                    if kernel == "binmax":
+                        out = (dense_binmax(q, emb, n - 300, mask, tile_n),)
+                        ref = (dense_binmax_ref(q, emb, n - 300, mask, tile_n),)
+                        dead = out[0][:, 128:256]
+                        plan = dense_binmax.last_plan
+                    else:
+                        out = dense_binmax2(q, emb, n - 300, mask, tile_n, trivial)
+                        ref = dense_binmax2_ref(q, emb, n - 300, mask, tile_n, trivial)
+                        dead = torch.cat([out[0][1:2].flatten(), out[1][:, 1:2].flatten()])
+                        plan = dense_binmax2.last_plan
+                    seen.setdefault((kernel, name, tile_n), set()).add(plan.split)
+                    what = (f"{kernel} {name} {family} tile_n={tile_n} tiles={tiles} B={b} "
+                            f"D={dim} trivial={trivial} plan={tuple(plan)}")
+                    check(all(o.shape == r.shape for o, r in zip(out, ref)), f"{what}: shapes")
+                    e = max((o - r).abs().max().item() for o, r in zip(out, ref))
+                    check(e <= (0.0 if family == "exact" else TOL[name]), f"{what}: err {e}")
+                    if tiles > 1 and not trivial:
+                        check(bool((dead == -1e30).all()), f"{what}: the fully masked tile")
+                    if family == "unit":
+                        err[f"{kernel}_cuda"] = max(err[f"{kernel}_cuda"], e)
+                        live = ref[0] > -1e29
+                        control = max(control, (ref[0].to(torch.bfloat16).float() - ref[0])[live]
+                                      .abs().max().item())
+                    cases += 1
+        del embs
+    torch.cuda.synchronize()
+    splits = {f"{k} {t} {tn}": sorted(v) for (k, t, tn), v in seen.items()}
+    log(f"  split sweep: {cases} cases; exact inputs equal (bins and supermax), unit vectors "
+        f"{json.dumps(err)} against {json.dumps(TOL)}, control (plain bins rounded to bf16) "
+        f"{control:.3e}; splits met {json.dumps(splits)}")
+    check(all(v == [1, 2, 4, 8] for v in splits.values()), f"every split met: {splits}")
+    check(control > max(TOL.values()), f"the split sweep's bf16-rounding control ({control}) "
+          f"passes the limits {TOL}")
+    return err
+
+
+def phase_binmax_eps(dev) -> dict:
+    """``binmax_eps`` (calibrated through both bin-max kernels, on one tile:
+    the split path) at (d, tile_n) (384, 1024), (768, 1024) and (384, 2048) for
+    both types, each equal to ``PARENT_EPS`` (relative 1e-9). The cache is
+    cleared afterwards, so that the main path's runs calibrate (and launch)
+    as they would in a fresh process."""
+    from ahrag_tpu_torch.ops.topk import binmax_eps
+    eps = {f"{d},{tile_n}": {name: binmax_eps(dev.type, d, tile_n, name == "bfloat16")
+                             for name in ("bfloat16", "float32")}
+           for d, tile_n in PARENT_EPS}
+    binmax_eps.cache_clear()
+    parent = {f"{d},{tile_n}": v for (d, tile_n), v in PARENT_EPS.items()}
+    log(f"  binmax_eps {json.dumps(eps)}; the parent's {json.dumps(parent)}")
+    for (d, tile_n), want in PARENT_EPS.items():
+        for name, v in want.items():
+            got = eps[f"{d},{tile_n}"][name]
+            check(math.isclose(got, v, rel_tol=1e-9),
+                  f"binmax_eps at ({d}, {tile_n}) {name}: {got} against the parent's {v}")
+    return eps
 
 
 def phase_tile_topk_vs_plain(dev) -> dict:
@@ -632,13 +760,16 @@ def phase_tile_topk_vs_plain(dev) -> dict:
 
 
 def kernel_row(name, kernel, plain, library, flops, nbytes, dtype, reps,
-               compare=None, plain_reps=None) -> dict:
+               compare=None, plain_reps=None, plan_of=None) -> dict:
     """Times and error of one kernel at one shape (launches filled in later),
-    with its achieved TFLOP/s and its share of the bound. ``compare(out,
-    ref)`` checks the outputs and returns the error; by default the largest
-    absolute difference within the type's tolerance."""
+    with its achieved TFLOP/s, its share of the bound and, for a bin-max
+    kernel, the launch plan that its wrapper ``plan_of`` records as launched
+    (``last_plan``: chunk, split, grid). ``compare(out, ref)`` checks the
+    outputs and returns the error; by default the largest absolute difference
+    within the type's tolerance."""
     import torch
     out, ref = kernel(), plain()
+    plan = plan_of.last_plan._asdict() if plan_of else None
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     if compare is None:
@@ -652,9 +783,10 @@ def kernel_row(name, kernel, plain, library, flops, nbytes, dtype, reps,
     plain_ms = cuda_ms(plain, plain_reps or max(2, reps // 4))
     library_ms = cuda_ms(library, reps)
     b_ms, b_by = bound(flops, nbytes, dtype)
-    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "tflops": flops / ms / 1e9,
-            "bound_share": b_ms / ms}
+    row = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms, "tflops": flops / ms / 1e9,
+           "bound_share": b_ms / ms}
+    return {**row, "plan": plan} if plan else row
 
 
 def run_rung(dev, n_entities: int, n_queries: int, emb_dtype: str) -> dict:
@@ -1815,6 +1947,7 @@ def phase_build(dev, ents_1m, ents_131k) -> tuple:
     from ahrag_tpu_torch.graph import HierarchicalGraph
     from ahrag_tpu_torch.graph.multi import rollout_multi
     from ahrag_tpu_torch.graph.search import SearchWeights
+    from ahrag_tpu_torch.ops.binmax import dense_binmax, dense_binmax_ref
     from ahrag_tpu_torch.ops.kmeans import (kmeans_em, kmeans_init, spherical_kmeans,
                                             unit_rows)
     out = {}
@@ -1840,6 +1973,25 @@ def phase_build(dev, ents_1m, ents_131k) -> tuple:
         f"byte-equal card == CPU ({len(same['artifact_files'])} files), graphs equal "
         f"(max |card - CPU| {json.dumps(same['max_abs_diff'])})")
     out["xl_build"] = {"stats": stats, "n_pad": n_pad, "stages": stages, **same}
+
+    # the answer path's kernel shape: dense_binmax at B 1 (one search of an
+    # answer) over the card's XL graph, a seeded unit query
+    gt = hgs["card"].tensors()
+    live, xl_tiles, xl_dim = gt.indexed & gt.valid, n_pad // 1024, gt.emb.shape[1]
+    q1 = torch.randn((1, xl_dim), generator=torch.Generator(device=dev).manual_seed(9),
+                     device=dev)
+    q1 = (q1 / q1.norm(dim=1, keepdim=True)).to(gt.emb.dtype)
+    xl_type, xl_es = str(gt.emb.dtype).split(".")[1], gt.emb.element_size()
+    out["kernel_row"] = kernel_row(
+        "binmax_cuda answer B=1", lambda: dense_binmax(q1, gt.emb, n_pad, live, 1024),
+        lambda: dense_binmax_ref(q1, gt.emb, n_pad, live, 1024),
+        lambda: torch.matmul(q1, gt.emb.T).view(1, xl_tiles, 8, 128).amax(2),
+        2.0 * n_pad * xl_dim,
+        n_pad * xl_dim * xl_es + xl_dim * xl_es + n_pad + xl_tiles * 128 * 4, xl_type,
+        reps=50, plan_of=dense_binmax)
+    log(f"  dense_binmax at the answer path's shape ({n_pad} x {xl_dim} {xl_type}, B=1): "
+        f"{json.dumps(out['kernel_row'])}")
+    del gt, live, q1
 
     # (2) answer and score the dev questions over each device's graph
     items = xl_questions()[:XL_BENCH_QUESTIONS]
@@ -2743,7 +2895,8 @@ def phase_learned(dev) -> dict:
         lambda: dense_binmax(q1, gt.emb, n, mask, 1024),
         lambda: dense_binmax_ref(q1, gt.emb, n, mask, 1024),
         lambda: torch.matmul(q1, gt.emb.T).view(1, tiles, 8, 128).amax(2),
-        2.0 * n * d, n * d * 4 + d * 4 + n + tiles * 128 * 4, "float32", reps=50),
+        2.0 * n * d, n * d * 4 + d * 4 + n + tiles * 128 * 4, "float32", reps=50,
+        plan_of=dense_binmax),
         "binmax2_cuda": kernel_row(
         "binmax2_cuda learned B=256",
         lambda: dense_binmax2(q256, gt.emb, n, mask, 1024, gt.mask_trivial),
@@ -2751,7 +2904,7 @@ def phase_learned(dev) -> dict:
         lambda: torch.matmul(q256, gt.emb.T).view(256, tiles, 8, 128).amax(2).amax(2),
         2.0 * 256 * n * d,
         n * d * 4 + 256 * d * 4 + (0 if gt.mask_trivial else n) + tiles * 256 * 128 * 4
-        + 256 * tiles * 4, "float32", reps=50)}
+        + 256 * tiles * 4, "float32", reps=50, plan_of=dense_binmax2)}
 
     t0 = time.perf_counter()
     cpu = {k: v for f in futures for k, v in f.result(timeout=900).items()}
@@ -3143,6 +3296,9 @@ def main() -> int:
     errs.update(phase_tile_topk_vs_plain(dev))
     err2048, shard_rows = phase_binmax_tile2048(dev)
     errs["binmax_cuda"] = max(errs["binmax_cuda"], err2048)
+    for k, e in phase_split_sweep(dev).items():
+        errs[k] = max(errs[k], e)
+    eps_checked = phase_binmax_eps(dev)
     log(f"phase 2: kernels vs plain done in {time.perf_counter() - t:.1f}s: {errs}")
     t = time.perf_counter()
     log("phase 3: 1M-entity rung, bf16, B=512")
@@ -3160,7 +3316,7 @@ def main() -> int:
         lambda: torch.matmul(q, gt.emb.T).view(512, tiles, 8, 128).amax(2).amax(2),
         2.0 * 512 * n * d,
         n * d * 2 + 512 * d * 2 + (0 if trivial else n) + tiles * 512 * 128 * 4 + 512 * tiles * 4,
-        "bfloat16", reps=10)
+        "bfloat16", reps=10, plan_of=dense_binmax2)
     def binmax_row(name, qb, emb, m, dtype, reps):
         """``dense_binmax`` at tile_n 1024 on a masked corpus: its row."""
         b, nn, es = qb.shape[0], emb.shape[0], emb.element_size()
@@ -3169,7 +3325,8 @@ def main() -> int:
             name, lambda: dense_binmax(qb, emb, nn, m, 1024),
             lambda: dense_binmax_ref(qb, emb, nn, m, 1024),
             lambda: torch.matmul(qb, emb.T).view(b, t, 8, 128).amax(2),
-            2.0 * b * nn * d, nn * d * es + b * d * es + nn + b * t * 128 * 4, dtype, reps)
+            2.0 * b * nn * d, nn * d * es + b * d * es + nn + b * t * 128 * 4, dtype, reps,
+            plan_of=dense_binmax)
 
     rows["binmax_cuda"] = binmax_row("binmax_cuda", q[:4].contiguous(), gt.emb, mask,
                                      "bfloat16", 20)
@@ -3191,7 +3348,7 @@ def main() -> int:
         lambda: torch.matmul(q2, gt2.emb.T).view(1024, t2, 8, 128).amax(2).amax(2),
         2.0 * 1024 * n2 * d,
         n2 * d * 4 + 1024 * d * 4 + t2 * 1024 * 128 * 4 + 1024 * t2 * 4,
-        "float32", reps=10)
+        "float32", reps=10, plan_of=dense_binmax2)
     rows["binmax_cuda"]["float32 B=64"] = binmax_row(
         "binmax_cuda f32 B=64", r2["q_dev"][:64].contiguous(), gt2.emb, mask2, "float32", 20)
     log(f"phase 4 done in {time.perf_counter() - t:.1f}s; binmax2 at the f32 "
@@ -3289,6 +3446,7 @@ def main() -> int:
     with scratch_cwd():          # phase 12's graphs stay here for phase 13
         built, xl_hgs = phase_build(dev, r1["arrs"].emb[:r1["arrs"].n_entities], ents_131k)
         built["wall_s"] = time.perf_counter() - t
+        rows["binmax_cuda"]["answer float32 D=384 B=1"] = built.pop("kernel_row")
         log(f"phase 12 done in {built['wall_s']:.1f}s")
 
         t = time.perf_counter()
@@ -3354,7 +3512,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned, 'multi': multi})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned, 'multi': multi, 'binmax_eps': eps_checked})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

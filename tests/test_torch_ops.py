@@ -280,3 +280,148 @@ def test_binmax_chunk_follows_batch_and_shared_memory(b, d, is_bf16, chunk):
     and the block's bytes within the opt-in limit either way."""
     assert tbin.binmax_chunk(b, d, is_bf16) == chunk
     assert tbin.ring_smem_bytes(d, chunk, is_bf16) <= 232448
+
+
+# Clusters of 1, 2, 4 and 8 blocks an H100 SXM (NVIDIA H100 80GB HBM3) runs
+# at once, one block per SM: its 132 SMs, then ``device_slots``'s reading of
+# the occupancy API on that card, which chip_smoke.py logs. Clusters stay
+# within a GPC, so 30 of 4 and 15 of 8 fit, not 33 and 16.
+SLOTS = (132, 66, 30, 15)
+SMS = SLOTS[0]
+SMEM_LIMIT = 232448
+
+
+def _plan(kernel, b, n, d, tile_n, is_bf16):
+    fn = tbin.binmax2_plan if kernel == "binmax2" else tbin.binmax_plan
+    qc, split, grid = fn(b, n, d, tile_n, is_bf16, SLOTS)
+    smem = (tbin.binmax2_smem_bytes(d, is_bf16, qc) if kernel == "binmax2"
+            else tbin.ring_smem_bytes(d, qc, is_bf16))
+    assert (tile_n // 128) % split == 0 and split in tbin.SPLITS
+    assert smem <= SMEM_LIMIT
+    items = -(-b // qc) * (n // tile_n)
+    assert grid == tbin.ring_grid(-(-b // qc), n // tile_n, split, not is_bf16, SMS)
+    return qc, split, items
+
+
+@pytest.mark.parametrize("kernel, b, n, d, tile_n, is_bf16", [
+    ("binmax2", 512, 1067008, 384, 1024, True),      # the 1M bf16 rung
+    ("binmax", 4, 1067008, 384, 1024, True),
+    ("binmax", 64, 1067008, 384, 1024, True),
+    ("binmax2", 1024, 133120, 384, 1024, False),     # the 131k float32 rung
+    ("binmax2", 1024, 134144, 384, 1024, False),
+    ("binmax", 64, 133120, 384, 1024, False),
+    ("binmax", 64, 134144, 384, 1024, False),
+    ("binmax", 4, 135168, 384, 1024, False),
+    ("binmax", 64, 262144, 384, 2048, True),         # a shard of 1M over 4 ranks
+    ("binmax", 64, 262144, 384, 2048, False),
+    ("binmax", 256, 1048576, 384, 4096, False),      # topk_bench's binmax
+    ("binmax", 256, 1048576, 384, 2048, False),      # and binmax_hi
+    ("binmax2", 256, 1048576, 384, 1024, False),     # and its refined stage
+])
+def test_binmax_plan_keeps_one_block_per_item_where_items_fill_the_card(
+        kernel, b, n, d, tile_n, is_bf16):
+    """Where two blocks an item would not fit one wave of the SMs (more than
+    66 items), the plan keeps split 1 and the chunk of old: the persistent
+    grid of one block per SM, as before the split existed."""
+    qc, split, _ = _plan(kernel, b, n, d, tile_n, is_bf16)
+    assert split == 1
+    if kernel == "binmax2":
+        assert qc == (tbin.binmax2_chunk(d) if is_bf16 else 128)
+    else:
+        assert qc == tbin.binmax_chunk(b, d, is_bf16)
+
+
+@pytest.mark.parametrize("kernel, b", [("binmax", 1), ("binmax", 4), ("binmax", 64),
+                                       ("binmax", 256), ("binmax2", 128), ("binmax2", 256)])
+@pytest.mark.parametrize("n", [5120, 6144])
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("is_bf16", [True, False])
+def test_binmax_plan_splits_the_items_of_small_graphs(kernel, b, n, d, is_bf16):
+    """On the answer path's and the learned graph's 5-6 tiles the plan splits
+    every item among 2-8 blocks: up to the cap of 8 (tile_n 1024's slices),
+    or as far as one wave of the SMs holds the blocks."""
+    qc, split, items = _plan(kernel, b, n, d, 1024, is_bf16)
+    assert split > 1 and items <= SLOTS[tbin.SPLITS.index(split)]
+    assert split == 8 or items > SLOTS[tbin.SPLITS.index(2 * split)]
+
+
+@pytest.mark.parametrize("b, n, d, plan", [
+    (128, 5120, 768, (64, 8, 80)), (128, 6144, 384, (64, 8, 96)),
+    (128, 1024, 384, (64, 8, 16)), (256, 5120, 768, (96, 8, 120)),
+    (512, 5120, 384, (96, 4, 120)), (256, 6144, 384, (128, 8, 96)),
+    (384, 5120, 384, (128, 8, 120)), (128, 16384, 384, (128, 4, 64)),
+    (1024, 134144, 384, (128, 1, 132)), (256, 1048576, 384, (128, 1, 132))])
+def test_binmax2_plan_narrows_the_float32_chunk_only_where_it_spreads_the_work(b, n, d, plan):
+    """float32 ``dense_binmax2`` takes 96 or 64 queries a block only in a
+    split where that gives each block less work by count (slices times
+    queries), ties to the wider chunk: at B 256 over 5 tiles 120 blocks of
+    96 queries instead of 80 of 128, at B 128 over 1-8 tiles 80 of 64
+    instead of 40. Over 6 tiles B 256's 18 items of 96 would need a second
+    wave, so 128 stays, as it does everywhere split 1 holds."""
+    assert tbin.binmax2_plan(b, n, d, 1024, False, SLOTS) == plan
+
+
+@pytest.mark.parametrize("items, slices, split", [
+    (1, 8, 8), (5, 8, 8), (15, 8, 8), (16, 8, 4), (30, 8, 4), (31, 8, 2), (66, 8, 2),
+    (67, 8, 1), (100, 8, 1), (131, 8, 1), (132, 8, 1), (1042, 8, 1), (5, 2, 2), (5, 1, 1),
+    (5, 16, 8), (5, 32, 8), (128, 16, 1), (20, 4, 4), (40, 4, 2)])
+def test_split_for_fills_one_wave(items, slices, split):
+    """``split_for``: the largest split dividing the slices whose items x S
+    blocks fit in one wave (at most the clusters of S the card runs at once);
+    1 once even a split of 2 would need a second wave."""
+    assert tbin.split_for(items, slices, SLOTS) == split
+
+
+@pytest.mark.parametrize("items, slots, split", [
+    (15, (132, 66, 33, 16), 8), (15, (132, 66, 32, 14), 4), (14, (132, 66, 32, 14), 8),
+    (33, (132, 66, 32, 14), 2), (5, (132, 66, 32, 4), 4), (67, (132, 66, 32, 14), 1)])
+def test_split_for_takes_the_wave_from_the_cards_cluster_slots(items, slots, split):
+    """Where clusters cannot fill every SM (GPCs of unequal size), the wave
+    is the card's count of clusters of S, not SMs / S: 15 items of 8 blocks
+    on a card that runs 14 clusters of 8 take clusters of 4."""
+    assert tbin.split_for(items, 8, slots) == split
+
+
+@pytest.mark.parametrize("chunks, tiles, split, stream_q, grid", [
+    (1, 1042, 1, False, 132), (4, 1042, 1, False, 132), (5, 1042, 1, False, 130),
+    (1, 5, 1, False, 5), (200, 3, 1, False, 200), (8, 130, 1, True, 132), (1, 5, 1, True, 5),
+    (1, 5, 8, True, 40), (3, 5, 8, False, 120), (2, 6, 4, True, 48)])
+def test_ring_grid_is_the_persistent_grid_or_a_cluster_an_item(chunks, tiles, split,
+                                                               stream_q, grid):
+    """``ring_grid``, the blocks a ring kernel launches: at split 1 one per
+    SM and at most one per item, with resident queries (bf16) a multiple of
+    the chunks and at least one a chunk; with a split, split blocks an item."""
+    assert tbin.ring_grid(chunks, tiles, split, stream_q, SMS) == grid
+    if split == 1 and not stream_q:
+        assert grid % chunks == 0
+
+
+@pytest.mark.parametrize("kernel", ["binmax", "binmax2"])
+@pytest.mark.parametrize("b", [1, 128])
+def test_binmax_ref_matches_pallas_at_the_learned_graph_layout(kernel, b):
+    """The plain versions the card's kernels are held against stay JAX's at
+    the learned graph's layout: 5 tiles of 1,024 rows, D 768 float32, tile 2
+    fully masked and n_valid short of N (interpret mode; ``dense_binmax2`` at
+    B 128 only, its kernel's rule)."""
+    if kernel == "binmax2" and b == 1:
+        b = 256
+    n, d, tile_n = 5120, 768, 1024
+    jq, tq, je, te, jm, tm = _inputs(n, d, b, 11, "float32")
+    jm = jm.at[2 * tile_n:3 * tile_n].set(False)
+    tm[2 * tile_n:3 * tile_n] = False
+    n_valid = n - 300
+    if kernel == "binmax":
+        jout = jtopk.dense_binmax_pallas(jq, je, jnp.int32(n_valid), jm, tile_n=tile_n,
+                                         interpret=True)
+        tout = tbin.dense_binmax(tq, te, n_valid, tm, tile_n=tile_n)
+        assert tout.shape == jout.shape == (b, 5 * 128)
+        assert bool((tout[:, 256:384] == tbin.NEG_INF).all())
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=1e-6)
+        return
+    jb, js = jtopk.dense_binmax2_pallas(jq, je, jnp.int32(n_valid), jm, tile_n=tile_n,
+                                        interpret=True)
+    tb, ts = tbin.dense_binmax2(tq, te, n_valid, tm, tile_n=tile_n)
+    assert tb.shape == jb.shape == (5, b, 128) and ts.shape == js.shape == (b, 5)
+    assert bool((tb[2] == tbin.NEG_INF).all() and (ts[:, 2] == tbin.NEG_INF).all())
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
