@@ -650,7 +650,8 @@ class ReaderAnswerer:
 def get_reader(ckpt_path: str, min_conf: float = 0.25,
                device=None) -> Optional[ReaderAnswerer]:
     """Cached reader on ``device`` (``cuda`` unless the caller names
-    another); None when no checkpoint is configured (reader off).
+    another; the cache keeps the two used last, as the JAX package's does);
+    None when no checkpoint is configured (reader off).
     ``ckpt_path`` may be a ``;``-separated ensemble list. A configured
     checkpoint that does not exist raises ``FileNotFoundError``."""
     if not ckpt_path:
@@ -661,6 +662,6 @@ def get_reader(ckpt_path: str, min_conf: float = 0.25,
     return _cached_reader(str(ckpt_path), float(min_conf), str(resolve_device(device)))
 
 
-@locked_cache
+@locked_cache(maxsize=2)
 def _cached_reader(ckpt_path: str, min_conf: float, device: str) -> ReaderAnswerer:
     return ReaderAnswerer(ckpt_path, min_conf=min_conf, device=device)

@@ -10,10 +10,13 @@ held as torch tensors on one device.
   ``valid``;
 - ELL adjacency ``[N_pad, K]`` int32, -1 padded, one table per typed
   direction (``parents``, ``children``, ``related``, ``hyperedges``,
-  ``members``), neighbours in edge insertion order.
+  ``members``), neighbours in edge insertion order; a dict adjacency of
+  10,000 edges or more is compiled in C++
+  (``native.ell_from_edges``), as in the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, List, Sequence
@@ -21,12 +24,17 @@ from typing import TYPE_CHECKING, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ahrag_tpu_torch import native
 from ahrag_tpu_torch.device import resolve_device
 
 if TYPE_CHECKING:
     from ahrag_tpu_torch.parallel.sharded import CorpusShard
 
 NODE_TYPE_IDS = {"entity": 0, "summary": 1, "hyperedge": 2}
+
+# A dict adjacency of this many edges or more is compiled to its ELL table
+# in C++ (``native.ell_from_edges``), as in the JAX package.
+NATIVE_ELL_MIN_EDGES = 10_000
 
 # Query-similar member expansion scans at most this many leading children per
 # summary seed; the packed child tables cap at the same width.
@@ -87,14 +95,29 @@ class GraphTensors:
 
 def _ell(adj, n_pad: int, min_k: int = 8) -> np.ndarray:
     """ELL table [n_pad, K] (-1 padded, K a multiple of 8 and >= ``min_k``)
-    from pre-built rows ``[N, K]`` or a dict ``node -> neighbours``."""
+    from pre-built rows ``[N, K]`` or a dict ``node -> neighbours``. A dict of
+    ``NATIVE_ELL_MIN_EDGES`` edges or more is filled in C++
+    (``native.ell_from_edges``), a smaller one by ``_ell_loop``: the same
+    table."""
     if isinstance(adj, np.ndarray):
         kk = max(min_k, round_up(adj.shape[1] if adj.ndim == 2 else 1, 8))
         out = np.full((n_pad, kk), -1, dtype=np.int32)
         if adj.size:
             out[: adj.shape[0], : adj.shape[1]] = adj
         return out
-    k = max(round_up(max([len(v) for v in adj.values()], default=1), 8), min_k)
+    lens = np.fromiter(map(len, adj.values()), dtype=np.int64, count=len(adj))
+    k = max(round_up(int(lens.max(initial=0)), 8), min_k)
+    total = int(lens.sum())
+    if total < NATIVE_ELL_MIN_EDGES:
+        return _ell_loop(adj, n_pad, k)
+    # the edge list in the dict's order, each node's neighbours in list order
+    src = np.repeat(np.fromiter(adj.keys(), dtype=np.int32, count=len(adj)), lens)
+    dst = np.fromiter(itertools.chain.from_iterable(adj.values()), dtype=np.int32, count=total)
+    return native.ell_from_edges(src, dst, n_pad, n_pad, k)
+
+
+def _ell_loop(adj: Dict[int, List[int]], n_pad: int, k: int) -> np.ndarray:
+    """The ELL table of a dict adjacency filled row by row in Python."""
     out = np.full((n_pad, k), -1, dtype=np.int32)
     for i, nbrs in adj.items():
         out[i, : len(nbrs)] = nbrs[:k]

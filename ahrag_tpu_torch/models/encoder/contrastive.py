@@ -376,14 +376,15 @@ class ContrastiveEncoder:
 
 def get_contrastive_encoder(ckpt_path: str = DEFAULT_CKPT,
                             device=None) -> Optional[ContrastiveEncoder]:
-    """Cached encoder on ``device``; None when ``ckpt_path`` does not exist.
+    """Cached encoder on ``device`` (the cache keeps the two used last, as
+    the JAX package's does); None when ``ckpt_path`` does not exist.
     A checkpoint that is there but does not load raises."""
     if not os.path.exists(ckpt_path):
         return None
     return _cached_encoder(ckpt_path, str(resolve_device(device)))
 
 
-@locked_cache
+@locked_cache(maxsize=2)
 def _cached_encoder(ckpt_path: str, device: str) -> ContrastiveEncoder:
     return ContrastiveEncoder(ckpt_path, device=device)
 

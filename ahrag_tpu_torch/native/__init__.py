@@ -1,4 +1,6 @@
-"""The port's copy of the C++ host runtime: the threaded hashed-n-gram featurizer.
+"""The port's copy of the C++ host runtime: the threaded hashed-n-gram
+featurizer, the ELL adjacency construction and its degree scan, and the host's
+exact top-k.
 
 ``csrc/ahrag_native.cpp`` is a verbatim copy of the JAX package's
 ``native/ahrag_native.cpp``. It is built at first use with the host C++
@@ -10,8 +12,9 @@ on another does.
 
 Unlike the JAX package's bindings these never answer "unbuilt": a library that
 cannot be built or loaded is an error, and no caller drops to Python. The
-Python featurizer (``HashedNGramEncoder._count_matrix``) is the plain version
-the tests hold this one against.
+Python featurizer (``HashedNGramEncoder._count_matrix``) and the Python loop of
+``graph/tensors.py`` (``_ell_loop``) are the plain versions the tests hold
+these against.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ _F = ctypes.c_float
 # name -> (restype, argtypes) of the extern "C" functions the port calls
 _SIGNATURES = {
     "ahrag_native_abi_version": (_I32, []),
+    "ell_max_degree": (_I32, [_P, _I64, _I32]),
+    "ell_build": (None, [_P, _P, _I64, _I32, _I32, _I32, _P]),
+    "exact_topk_f32": (None, [_P, _P, _I32, _I64, _I32, _I32, _P, _P]),
     "token_estimate": (_I64, [ctypes.c_char_p, _I64]),
     "hash_features_w": (None, [ctypes.c_char_p, _I64, _I32, _F, _P]),
     "hash_features_coo_batch_w": (_I64, [ctypes.c_char_p, _P, _I32, _I32, _F, _I32,
@@ -47,14 +53,22 @@ _SIGNATURES = {
 }
 
 
-def find_cxx() -> str:
-    """``$CXX``, then ``c++``, then ``g++`` from PATH."""
+def which_cxx() -> str | None:
+    """``$CXX``, then ``c++``, then ``g++`` from PATH; None when none is found."""
     for c in (os.environ.get("CXX"), "c++", "g++"):
         path = c and shutil.which(c)
         if path:
             return path
+    return None
+
+
+def find_cxx() -> str:
+    """``which_cxx``, or an error when there is no compiler."""
+    cxx = which_cxx()
+    if cxx:
+        return cxx
     raise RuntimeError("no C++ compiler ($CXX, c++ or g++ on PATH); the port's "
-                       "native featurizer cannot be built")
+                       "native runtime cannot be built")
 
 
 def library_path(cxx: str) -> Path:
@@ -64,7 +78,7 @@ def library_path(cxx: str) -> Path:
 
 
 def build() -> dict:
-    """Compile the featurizer unless the library for this source exists.
+    """Compile the runtime unless the library for this source exists.
     Returns {"path", "seconds", "built"}."""
     cxx = find_cxx()
     out = library_path(cxx)
@@ -83,11 +97,9 @@ def build() -> dict:
     return {"path": str(out), "seconds": seconds, "built": True}
 
 
-
-
 @locked_cache
 def load_library() -> ctypes.CDLL:
-    """The featurizer's library, built on first use. Thread-safe: the first
+    """The runtime's library, built on first use. Thread-safe: the first
     of several concurrent callers builds it, the others wait."""
     lib = ctypes.CDLL(build()["path"])
     for name, (restype, argtypes) in _SIGNATURES.items():
@@ -95,13 +107,43 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     if lib.ahrag_native_abi_version() != ABI_VERSION:
-        raise RuntimeError("the native featurizer's ABI version is not "
+        raise RuntimeError("the native runtime's ABI version is not "
                            f"{ABI_VERSION}")
     return lib
 
 
+def available() -> bool:
+    """Whether the library loads, building it first if need be: False only
+    while it is not loaded and no C++ compiler is found. A compiler that
+    fails, or a library that does not load, raises."""
+    if load_library.cache_info().currsize == 0 and which_cxx() is None:
+        return False
+    load_library()
+    return True
+
+
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
+
+
+def ell_from_edges(src: np.ndarray, dst: np.ndarray, n_nodes: int, n_pad: int,
+                   k: int) -> np.ndarray:
+    """Padded ELL table ``[n_pad, k]`` int32, -1 padded, from an edge list:
+    row ``s`` holds the ``dst`` of ``s``'s edges in edge order, its first
+    ``k`` only; edges whose ``src`` lies outside ``[0, n_nodes)`` are dropped."""
+    if n_nodes > n_pad:
+        raise ValueError(f"n_nodes {n_nodes} exceeds the table's {n_pad} rows")
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    out = np.full((n_pad, k), -1, dtype=np.int32)
+    load_library().ell_build(_ptr(src), _ptr(dst), len(src), n_nodes, n_pad, k, _ptr(out))
+    return out
+
+
+def max_degree(src: np.ndarray, n_nodes: int) -> int:
+    """The most edges any node in ``[0, n_nodes)`` is the source of (0 for none)."""
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    return int(load_library().ell_max_degree(_ptr(src), len(src), n_nodes))
 
 
 def token_estimate(text: str) -> int:
@@ -148,3 +190,19 @@ def hash_features_counts(texts: List[str], buckets: int,
         raw = (text or "").encode("utf-8")
         lib.hash_features_w(raw, len(raw), buckets, cgram_weight, _ptr(out[i]))
     return out
+
+
+def exact_topk(q: np.ndarray, emb: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact top-k of ``q @ emb.T`` on the host (the CPU baseline): values
+    ``[B, k]`` float32 in descending order and row ids ``[B, k]`` int32, ties
+    to the lowest id, ``k`` clamped to the row count."""
+    q = np.ascontiguousarray(q, dtype=np.float32)
+    emb = np.ascontiguousarray(emb, dtype=np.float32)
+    b, d = q.shape
+    n = emb.shape[0]
+    k = min(k, n)
+    vals = np.empty((b, k), dtype=np.float32)
+    idx = np.empty((b, k), dtype=np.int32)
+    if k > 0:    # the library's insertion needs a slot
+        load_library().exact_topk_f32(_ptr(q), _ptr(emb), b, n, d, k, _ptr(vals), _ptr(idx))
+    return vals, idx

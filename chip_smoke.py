@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (``ahrag_tpu_torch/ops/csrc``) and its C++
-featurizer (``ahrag_tpu_torch/native/csrc``) and then, in phases that each
+host runtime (``ahrag_tpu_torch/native/csrc``) and then, in phases that each
 print their wall time:
 
   1. builds the kernels (one nvcc call) and then the native featurizer (the
@@ -54,7 +54,12 @@ print their wall time:
   6. serving: 4 text queries, then the first 256 sample questions at buckets
      4, 16, 64 and 256 through ``pack_queries`` (native featurizer, held bit
      for bit against the Python one, both timed), and ``encode_and_search``
-     against the 1M-node graph, the card's ids held against the CPU's;
+     against the 1M-node graph, the card's ids held against the CPU's; then
+     the native runtime's graph half on the host: the ELL table of a dict
+     adjacency of 131,072 nodes x 16 neighbours through ``_ell``'s native
+     path and through the Python loop (equal, both timed beside the card's
+     name and power limit), and ``native.exact_topk`` against
+     ``dense_topk_ref`` on the card;
   7. encoding: ``encode_device`` of the sample corpus with an IDF from
      ``document_frequencies``, on the card and on the CPU;
   8. a host graph: the sample corpus's 4,050 lines as entities under topic
@@ -998,6 +1003,45 @@ def phase_serve_buckets(dev, enc, idf, r1, gt_cpu) -> dict:
     check(score_err <= score_tol, f"bucket 64: serve scores differ by {score_err} "
           f"(tolerance {score_tol}, {flips} bf16 flips)")
     return {"featurize": featurize, "bucket64_ms": serve_ms, "bucket64_launches": counts}
+
+
+def phase_native_host(dev, smi: str) -> dict:
+    """The native host runtime's graph half: the ELL table of a dict
+    adjacency of 131,072 nodes x 16 neighbours through ``_ell`` (its native
+    path) and through the Python loop ``_ell_loop``, equal and both timed;
+    then ``native.exact_topk`` against ``dense_topk_ref`` on the card at
+    B 8 x 4,096 unit rows x D 384, k 10 (ids equal, values within 1e-5)."""
+    import numpy as np
+    import torch
+    from ahrag_tpu_torch import native
+    from ahrag_tpu_torch.graph.tensors import NATIVE_ELL_MIN_EDGES, _ell, _ell_loop
+    from ahrag_tpu_torch.ops.topk import _unit_rows, dense_topk_ref
+    rng = np.random.default_rng(16)
+    n, deg = 131072, 16
+    adj = {i: row for i, row in enumerate(rng.integers(0, n, (n, deg)).tolist())}
+    check(n * deg >= NATIVE_ELL_MIN_EDGES, "the ELL check takes the native path")
+    native_ms, table = host_ms(lambda: _ell(adj, n), 3)
+    src = np.repeat(np.arange(n, dtype=np.int32), deg)
+    dst = np.asarray(list(adj.values()), dtype=np.int32).reshape(-1)
+    fill_ms, built = host_ms(lambda: native.ell_from_edges(src, dst, n, n, deg), 3)
+    python_ms, looped = host_ms(lambda: _ell_loop(adj, n, table.shape[1]), 3)
+    check(table.shape == (n, deg) and np.array_equal(table, looped)
+          and np.array_equal(table, built), "native ELL table differs from the Python loop's")
+    log(f"  ELL of {n:,} nodes x {deg} neighbours ({n * deg:,} edges) equal: _ell (native "
+        f"path) {native_ms:.3f} ms, of which ell_from_edges {fill_ms:.3f} ms; Python loop "
+        f"{python_ms:.3f} ms; host median of 3 ({smi})")
+    q, emb, k = _unit_rows(rng, 8, 384), _unit_rows(rng, 4096, 384), 10
+    vals, ids = native.exact_topk(q, emb, k)
+    ref_vals, ref_ids = dense_topk_ref(torch.from_numpy(q).to(dev),
+                                       torch.from_numpy(emb).to(dev), 4096, k)
+    err = float(np.abs(vals - ref_vals.cpu().numpy()).max())
+    check(ids.tolist() == ref_ids.cpu().tolist(), "exact_topk ids differ from dense_topk_ref's")
+    check(err <= 1e-5, f"exact_topk values differ from dense_topk_ref's by {err}")
+    log(f"  exact_topk (B 8, 4,096 x 384, k {k}) ids equal to dense_topk_ref on the card, "
+        f"max|native-card| {err:.3e}")
+    return {"ell_nodes": n, "ell_degree": deg, "ell_native_ms": native_ms,
+            "ell_from_edges_ms": fill_ms, "ell_python_ms": python_ms,
+            "exact_topk_max_abs_err": err}
 
 
 def phase_encode(dev, d: int) -> dict:
@@ -3402,6 +3446,7 @@ def main() -> int:
     check(score_err <= 1e-5, f"serve scores differ by {score_err}")
     check(serve_counts["binmax_cuda"] > 0, "binmax kernel launched by the serve bucket")
     served = phase_serve_buckets(dev, enc, idf, r1, gt_cpu)
+    served["native_host"] = phase_native_host(dev, smi)
     log(f"phase 6 done in {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
@@ -3512,7 +3557,7 @@ def main() -> int:
         "binmax2 131k f32 B=1024": n2 * d * 4 * (1024 // 128),
         "tile_topk 1M bf16 B=512": n * d * 2 * (512 // 32),
         "tile_topk 131k f32 B=2048": n2 * d * 4 * (2048 // 32)}))
-    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned, 'multi': multi, 'binmax_eps': eps_checked})}")
+    log(f"summary {json.dumps({'flat': [{k: v for k, v in f.items() if k != 'kernel'} for f in flat], 'tile_topk_131k_f32': flat[1]['kernel'], 'featurize': served['featurize'], 'native_host': served['native_host'], 'encode': encoded, 'host_graph': hosted, 'service_1m': loaded, 'agent': agent, 'answers': answered, 'build': built, 'host_training': trained, 'learned': learned, 'multi': multi, 'binmax_eps': eps_checked})}")
     log(f"total wall {time.perf_counter() - _T0:.1f}s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -108,6 +108,10 @@ from ahrag_tpu_torch.models.encoder import contrastive, create_encoder
 from ahrag_tpu_torch.models.encoder.minilm import MiniLMEncoder
 from ahrag_tpu_torch import entry
 from ahrag_tpu_torch.cli import topk_bench
+from ahrag_tpu_torch import native
+assert native.available() and native.max_degree(np.array([0, 1, 0]), 2) == 2
+assert native.ell_from_edges(np.array([1]), np.array([0]), 2, 2, 8)[1, 0] == 0
+assert native.exact_topk(np.eye(2), np.eye(2), 1)[1].tolist() == [[0], [1]]
 ckpt = os.path.join({root!r}, "checkpoints", "reader.msgpack")
 enc_ckpt = os.path.join({root!r}, "checkpoints", "encoder.msgpack")
 ctx = {{"context_text": "[DETAIL:p0] Tim Burton directed Ed Wood.", "used_nodes": []}}
@@ -541,3 +545,28 @@ def test_signatures_match_the_cuda_launchers():
             found[name] = len([a for a in args.split(",") if a.strip()])
     assert found, "no extern \"C\" launcher found"
     assert {n: len(a) for n, a in _build._SIGNATURES.items()} == found
+
+
+# the native runtime's bindings: none may hold a ``try`` or compute without
+# the library
+NATIVE_BINDINGS = ("available", "ell_from_edges", "max_degree", "exact_topk",
+                   "token_estimate", "hash_features_coo", "hash_features_counts")
+
+
+@pytest.mark.parametrize("name", NATIVE_BINDINGS)
+def test_native_binding_falls_under_the_no_try_rule(name):
+    """Each binding lives in a file under ``NO_TRY``, holds no ``try`` and
+    reaches the library through ``load_library`` on every path: no branch
+    of it returns before the library is loaded, except ``available``'s
+    answer that there is no compiler."""
+    path = ROOT / "ahrag_tpu_torch" / "native" / "__init__.py"
+    assert str(path.relative_to(ROOT)).startswith(NO_TRY)
+    fn = next(n for n in ast.parse(path.read_text()).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), name
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and _dotted(n.func) == "load_library"]
+    assert calls, f"{name} never loads the library"
+    first_load = min(c.lineno for c in calls)
+    early = [n for n in ast.walk(fn) if isinstance(n, ast.Return) and n.lineno < first_load]
+    assert len(early) == (1 if name == "available" else 0), name

@@ -160,6 +160,30 @@ def test_contrastive_trainer_writes_what_the_encoder_reads(tmp_path, texts):
     np.testing.assert_allclose(np.linalg.norm(out, axis=1), 1.0, rtol=0, atol=1e-5)
 
 
+def test_encoder_cache_keeps_the_two_used_last(tmp_path, texts):
+    """``_cached_encoder`` holds two encoders, as the JAX package's
+    ``lru_cache(maxsize=2)`` does: a third checkpoint evicts the first."""
+    paths = []
+    for i in range(3):
+        model = tc.SentEncoder(16, 1, 8, seed=i, device="cpu")
+        torch.save({"params": model.state_dict()}, tmp_path / f"e{i}.pt")
+        (tmp_path / f"e{i}_meta.json").write_text(json.dumps(
+            {"d_model": 16, "n_layers": 1, "out_dim": 8}))
+        paths.append(str(tmp_path / f"e{i}.pt"))
+    tc._cached_encoder.cache_clear()
+    assert tc._cached_encoder.cache_info().maxsize == 2
+    first, second, third = (tc.get_contrastive_encoder(p, device="cpu") for p in paths)
+    assert len({id(first), id(second), id(third)}) == 3
+    assert tc._cached_encoder.cache_info().currsize == 2
+    assert tc.get_contrastive_encoder(paths[2], device="cpu") is third
+    assert tc.get_contrastive_encoder(paths[1], device="cpu") is second
+    again = tc.get_contrastive_encoder(paths[0], device="cpu")
+    assert again is not first
+    np.testing.assert_array_equal(again.encode(texts[:2]), first.encode(texts[:2]))
+    assert tc._cached_encoder.cache_info().currsize == 2
+    tc._cached_encoder.cache_clear()
+
+
 def test_minilm_matches_flax_at_the_default_width(texts):
     je = JME(seed=0)
     te = TME(device="cpu")

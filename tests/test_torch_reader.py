@@ -181,6 +181,34 @@ def test_get_reader_caches_and_refuses_missing_checkpoint(tmp_path):
         treader.get_reader(str(bad), device="cpu")
 
 
+def test_reader_cache_keeps_the_two_used_last(tmp_path):
+    """``_cached_reader`` holds two readers, as the JAX package's
+    ``lru_cache(maxsize=2)`` does: a third checkpoint evicts the first. The
+    bare ``locked_cache`` users stay unbounded."""
+    from ahrag_tpu_torch import native
+    from ahrag_tpu_torch.ops import _build, topk
+    paths = []
+    for i in range(3):
+        model = SpanReader(d_model=16, n_heads=2, n_layers=1, d_ff=32, seed=i, device="cpu")
+        torch.save({"params": model.state_dict()}, tmp_path / f"r{i}.pt")
+        (tmp_path / f"r{i}_curve.json").write_text(json.dumps(
+            {"d_model": 16, "n_layers": 1, "d_ff": 32, "n_heads": 2}))
+        paths.append(str(tmp_path / f"r{i}.pt"))
+    treader._cached_reader.cache_clear()
+    assert treader._cached_reader.cache_info().maxsize == 2
+    first, second, third = (treader.get_reader(p, device="cpu") for p in paths)
+    assert len({id(first), id(second), id(third)}) == 3
+    assert treader._cached_reader.cache_info().currsize == 2
+    assert treader.get_reader(paths[2], device="cpu") is third
+    assert treader.get_reader(paths[1], device="cpu") is second
+    again = treader.get_reader(paths[0], device="cpu")
+    assert again is not first and again._model.config.d_model == 16
+    assert treader._cached_reader.cache_info().currsize == 2
+    treader._cached_reader.cache_clear()
+    for bare in (native.load_library, _build.load_library, topk.matmul_eps, topk.binmax_eps):
+        assert bare.cache_info().maxsize is None, bare.__name__
+
+
 def _jax_step(model, params, tx, opt_state, data, starts, ends, take, key):
     """The body of the JAX trainer's scanned step, as written there (its
     gradient jitted, as the trainer jits the whole step)."""

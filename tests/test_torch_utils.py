@@ -133,3 +133,34 @@ def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     assert "my_region" in names and "aten::matmul" in names
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert os.path.exists(tmp_path / "trace.json")
+
+
+@pytest.mark.parametrize("maxsize", [None, 2])
+def test_locked_cache_computes_a_cold_key_once_and_keeps_maxsize(maxsize):
+    """Of 8 threads that reach a cold key together one computes; with
+    ``maxsize=2`` a third key evicts the first, bare ``locked_cache`` keeps all."""
+    from ahrag_tpu_torch.utils.once import locked_cache
+    calls, gate = [], threading.Barrier(8)
+
+    def square(x):
+        calls.append(x)
+        return [x * x]
+
+    fn = locked_cache(square) if maxsize is None else locked_cache(maxsize=maxsize)(square)
+    out = []
+
+    def worker():
+        gate.wait()
+        out.append(fn(3))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert calls == [3] and all(o is out[0] for o in out)
+    first = fn(3)
+    fn(4), fn(5)
+    assert fn.cache_info().maxsize == maxsize
+    assert fn.cache_info().currsize == (3 if maxsize is None else 2)
+    assert (fn(3) is first) == (maxsize is None)
